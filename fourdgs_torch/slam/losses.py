@@ -1,0 +1,88 @@
+"""The static SLAM losses (port of fourdgs/slam/losses.py).
+
+Images are (3, H, W) in [0,1]; depths and opacity (H, W); `motion_mask`
+is True on static (usable) pixels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def apply_exposure(image: torch.Tensor, exposure_a, exposure_b) -> torch.Tensor:
+    """Affine exposure compensation: exp(a) * I + b."""
+    return torch.exp(exposure_a) * image + exposure_b
+
+
+def tracking_loss_rgbd(
+    image: torch.Tensor,
+    depth: torch.Tensor,
+    opacity: torch.Tensor,
+    gt_image: torch.Tensor,
+    gt_depth: torch.Tensor,
+    grad_mask: torch.Tensor,
+    motion_mask: torch.Tensor | None = None,
+    alpha: float = 0.95,
+    rgb_boundary_threshold: float = 0.01,
+) -> torch.Tensor:
+    """Opacity-weighted L1 RGB on edge pixels + L1 depth on confident
+    pixels, means over the FULL image like the reference's `.mean()`."""
+    rgb_mask = (torch.sum(gt_image, dim=0) > rgb_boundary_threshold) & grad_mask
+    if motion_mask is not None:
+        rgb_mask = rgb_mask & motion_mask
+    rgb_maskf = rgb_mask.to(image.dtype)[None]
+    l1_rgb = torch.mean(opacity[None] * torch.abs((image - gt_image) * rgb_maskf))
+
+    depth_mask = (gt_depth > 0.01) & (gt_depth < 1000.0) & (opacity > 0.95)
+    if motion_mask is not None:
+        depth_mask = depth_mask & motion_mask
+    l1_depth = torch.mean(torch.abs((depth - gt_depth) * depth_mask.to(depth.dtype)))
+    return alpha * l1_rgb + (1.0 - alpha) * l1_depth
+
+
+def mapping_loss_rgbd(
+    image: torch.Tensor,
+    depth: torch.Tensor,
+    gt_image: torch.Tensor,
+    gt_depth: torch.Tensor,
+    motion_mask: torch.Tensor | None = None,
+    alpha: float = 0.95,
+    rgb_boundary_threshold: float = 0.01,
+    rm_dynamic: bool = False,
+) -> torch.Tensor:
+    """L1 RGB + L1 depth mapping loss; batched over a leading view axis
+    when given (V, 3, H, W) images, returning per-view losses."""
+    rgb_mask = torch.sum(gt_image, dim=-3) > rgb_boundary_threshold
+    depth_mask = (gt_depth > 0.01) & (gt_depth < 10000.0)
+    if motion_mask is not None and rm_dynamic:
+        rgb_mask = rgb_mask & motion_mask
+        depth_mask = depth_mask & motion_mask
+    l1_rgb = torch.abs((image - gt_image) * rgb_mask.to(image.dtype).unsqueeze(-3))
+    l1_depth = torch.abs((depth - gt_depth) * depth_mask.to(depth.dtype))
+    return (alpha * torch.mean(l1_rgb, dim=(-3, -2, -1))
+            + (1.0 - alpha) * torch.mean(l1_depth, dim=(-2, -1)))
+
+
+def isotropic_loss(scaling: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """|s - mean(s)| per Gaussian, masked mean over alive slots."""
+    dev = torch.abs(scaling - torch.mean(scaling, dim=1, keepdim=True))
+    alivef = alive.to(scaling.dtype)[:, None]
+    return torch.sum(dev * alivef) / torch.clamp(torch.sum(alivef) * scaling.shape[1], min=1.0)
+
+
+def median_depth(depth: torch.Tensor, opacity: torch.Tensor | None = None,
+                 mask: torch.Tensor | None = None):
+    """Median and spread of valid rendered depth (the mean of the two
+    middle values for an even count, like jnp.nanmedian)."""
+    valid = depth > 0
+    if opacity is not None:
+        valid = valid & (opacity > 0.95)
+    if mask is not None:
+        valid = valid & mask
+    vals = depth[valid]
+    if vals.numel() == 0:
+        nan = torch.tensor(float("nan"), device=depth.device)
+        return nan, nan, valid
+    med = torch.quantile(vals, 0.5)
+    std = torch.sqrt(torch.mean((vals - med) ** 2))
+    return med, std, valid

@@ -1,0 +1,434 @@
+"""SLAM orchestrator, static RGB-D path (port of fourdgs/slam/runner.py).
+
+One host loop alternates tracking and keyframe mapping, as the reference
+does with `single_thread: True`:
+
+  frame 0: pose <- GT, spawn Gaussians from RGB-D, `init_itr_num`
+           mapping iterations with densify every `init_gaussian_update`
+           and an opacity reset at `init_gaussian_reset`,
+  else:    track -> keyframe test (translation/covisibility, checked
+           every `kf_interval` frames) -> on a keyframe: spawn Gaussians,
+           window update, mapping chunks with the densify/reset cadence,
+           pose resync.
+
+The port runs on the CUDA device unless `device="cpu"` is passed; with no
+device and no CUDA it raises. It has no fixed pair buffer, so the
+reference's pair-budget ladder and re-runs on overflow are gone; an
+overflow past `RasterConfig.max_pairs` is only logged. Every random draw
+goes through `draws` (utils/draws.py), in the order the reference
+consumes its keys.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from fourdgs_torch.data.base import load_dataset
+from fourdgs_torch.data.prefetch import iter_frames
+from fourdgs_torch.device import resolve_device
+from fourdgs_torch.models import gaussian_map as gm
+from fourdgs_torch.ops.rasterize.api import RasterConfig
+from fourdgs_torch.slam import keyframes as kfs
+from fourdgs_torch.slam.cadence import mapping_cadence
+from fourdgs_torch.slam.camera import Frame, Intrinsics
+from fourdgs_torch.slam.losses import median_depth
+from fourdgs_torch.slam.mapping import (
+    MappingConfig,
+    init_pose_adam,
+    map_chunk,
+    render_keyframe,
+    window_visibility,
+)
+from fourdgs_torch.slam.tracking import TrackingConfig, track_frame
+from fourdgs_torch.utils.draws import TorchDraws
+from fourdgs_torch.utils.logging import Log
+
+
+class SLAM:
+    def __init__(
+        self,
+        config,
+        max_frames: int | None = None,
+        capacity: int = 1 << 14,
+        max_capacity: int = 1 << 18,
+        max_keyframes: int = 512,
+        device: str | torch.device | None = None,
+        draws=None,
+    ):
+        self.device = resolve_device(device)
+        self.config = config
+        tr = config["Training"]
+        if tr.get("monocular", False) or tr.get("rm_initdy", False):
+            raise ValueError("the port runs the RGB-D path only (no monocular, no rm_initdy)")
+        self.kf_interval = int(tr.get("kf_interval", 5))
+        self.window_size = int(tr.get("window_size", 8))
+        self.pose_window = int(tr.get("pose_window", 3))
+        self.kf_translation = float(tr.get("kf_translation", 0.08))
+        self.kf_min_translation = float(tr.get("kf_min_translation", 0.05))
+        self.kf_overlap = float(tr.get("kf_overlap", 0.9))
+        self.kf_cutoff = float(tr.get("kf_cutoff", 0.3))
+        self.alpha = float(tr.get("alpha", 0.95))
+        self.init_itr_num = int(tr.get("init_itr_num", 1050))
+        self.init_gaussian_update = int(tr.get("init_gaussian_update", 100))
+        self.init_gaussian_reset = int(tr.get("init_gaussian_reset", 500))
+        self.init_gaussian_th = float(tr.get("init_gaussian_th", 0.005))
+        self.init_gaussian_extent = float(tr.get("init_gaussian_extent", 30))
+        self.gaussian_update_every = int(tr.get("gaussian_update_every", 150))
+        self.gaussian_update_offset = int(tr.get("gaussian_update_offset", 50))
+        self.gaussian_th = float(tr.get("gaussian_th", 0.7))
+        self.gaussian_extent = float(tr.get("gaussian_extent", 1.0))
+        self.gaussian_reset = int(tr.get("gaussian_reset", 2001))
+        self.size_threshold = float(tr.get("size_threshold", 20))
+        self.tracking_itr_num = int(tr.get("tracking_itr_num", 100))
+        self.kf_iters = int(tr.get("keyframe_mapping_iters", 200))
+        self.edge_threshold = float(tr.get("edge_threshold", 1.1))
+        op = config.get("opt_params", {})
+        self.densify_grad_threshold = float(op.get("densify_grad_threshold", 2e-4))
+        ds = config["Dataset"]
+
+        self.intr = Intrinsics.from_config(config)
+        self.dataset = load_dataset(None, ds.get("dataset_path", ""), config,
+                                    device=self.device)
+        n_frames = len(self.dataset)
+        self.n_frames = n_frames if max_frames is None else min(n_frames, max_frames)
+        self.max_capacity = max_capacity
+        self.raster = RasterConfig()
+        self.track_cfg = TrackingConfig(
+            max_iters=self.tracking_itr_num,
+            lr_rot=float(tr["lr"]["cam_rot_delta"]),
+            lr_trans=float(tr["lr"]["cam_trans_delta"]),
+            alpha=self.alpha,
+            raster=self.raster,
+        )
+        pl_init = float(op.get("position_lr_init", 0.00016))
+        pl_final = float(op.get("position_lr_final", 1.6e-6))
+        self.map_cfg = MappingConfig(
+            num_window_views=self.window_size,
+            pose_window=self.pose_window,
+            alpha=self.alpha,
+            lr_rot=float(tr["lr"]["cam_rot_delta"]) * 0.5,
+            lr_trans=float(tr["lr"]["cam_trans_delta"]) * 0.5,
+            rm_dynamic=True,
+            raster=self.raster,
+            xyz_lr_ratio=pl_final / max(pl_init, 1e-30),
+            xyz_lr_max_steps=int(op.get("position_lr_max_steps", 30000)),
+        )
+
+        self.gmap = gm.empty_map(capacity, self.device)
+        self.adam = gm.init_adam(capacity, self.device)
+        self.store = kfs.empty_store(max_keyframes, self.intr.height, self.intr.width,
+                                     self.device)
+        self.draws = TorchDraws(0, self.device) if draws is None else draws
+
+        # host bookkeeping
+        self.poses_est: dict[int, np.ndarray] = {}
+        self.exposures: dict[int, np.ndarray] = {}
+        self.kf_slot: dict[int, int] = {}
+        self.occ_visibility: dict[int, np.ndarray] = {}
+        self.window: list[int] = []
+        self.kf_indices: list[int] = []
+        # monotone count of keyframes ever stored: slot assignment keys
+        # off it so store wraparound evicts deterministically
+        self.kf_total = 0
+        self.iteration_count = 0
+        self.median_depth = 2.0
+        self.max_pairs_seen = 0
+        self.rng = np.random.default_rng(0)
+        self.metrics: dict = {}
+
+    def _note_pairs(self, num_pairs: int, overflow: bool):
+        self.max_pairs_seen = max(self.max_pairs_seen, int(num_pairs))
+        if overflow:
+            Log(f"{num_pairs} pairs binned in one view, above max_pairs "
+                f"{self.raster.max_pairs}", tag="Perf")
+
+    def _grow_to(self, new_cap: int):
+        self.gmap, self.adam = gm.resize_map(self.gmap, self.adam, new_cap)
+        Log(f"Capacity bucket grown to {new_cap}")
+
+    def _maybe_grow(self):
+        """Double the capacity when the map is more than 70% full."""
+        cap = self.gmap.capacity
+        if self.gmap.num_alive > 0.7 * cap and cap < self.max_capacity:
+            self._grow_to(min(self.max_capacity, cap * 2))
+
+    # ------------------------------------------------------------------
+    def _spawn_gaussians(self, frame: Frame, T_cw: torch.Tensor, exposure, init: bool) -> int:
+        """Back-project the keyframe depth (invalid-RGB and dynamic pixels
+        zeroed) into new Gaussians."""
+        ds = self.config["Dataset"]
+        downs = int(ds.get("pcd_downsample_init" if init else "pcd_downsample",
+                           32 if init else 128))
+        valid_rgb = torch.sum(frame.image, dim=0) > 0.01
+        depth = frame.depth * valid_rgb * frame.motion_mask
+        cands = gm.candidates_from_rgbd(
+            self.draws.uniform(depth.numel()), frame.image, depth, T_cw,
+            self.intr.fx, self.intr.fy, self.intr.cx, self.intr.cy,
+            downsample=downs,
+            point_size=float(ds.get("point_size", 0.01)),
+            adaptive_pointsize=bool(ds.get("adaptive_pointsize", True)),
+            exposure_a=float(exposure[0]), exposure_b=float(exposure[1]),
+        )
+        n_new = cands.valid.shape[0]
+        while (self.gmap.num_alive + n_new > 0.9 * self.gmap.capacity
+               and self.gmap.capacity < self.max_capacity):
+            self._grow_to(min(self.max_capacity, self.gmap.capacity * 2))
+        self.gmap, self.adam, n = gm.insert(self.gmap, self.adam, cands, kf_id=frame.uid)
+        return n
+
+    def _densify(self, min_opacity: float, extent: float, max_screen_size: float):
+        self.gmap, self.adam = gm.densify_and_prune(
+            self.gmap, self.adam, self.draws.normal2(self.gmap.params.xyz.shape),
+            self.densify_grad_threshold, min_opacity, extent, max_screen_size,
+        )
+        self._maybe_grow()
+
+    def _map(self, slots, valid, opt_pose, pool, pool_size, pose_adam, chunk,
+             step_after):
+        res = map_chunk(
+            self.gmap, self.adam, self.store, slots, valid, opt_pose, pool, pool_size,
+            pose_adam, self.draws.replay_picks(chunk, pool_size), chunk, step_after,
+            self.iteration_count, self.intr, self.map_cfg,
+        )
+        self._note_pairs(res.num_pairs, res.overflow)
+        self.gmap, self.adam, self.store = res.gmap, res.adam, res.store
+        return res
+
+    def _pose_tensor(self, T) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(T), dtype=torch.float32, device=self.device)
+
+    def _visibility_at(self, T_cw: torch.Tensor):
+        """(n_touched > 0 as numpy, the render) at pose T_cw."""
+        out = render_keyframe(self.gmap, T_cw, self.intr, self.map_cfg)
+        return (out.n_touched > 0).cpu().numpy(), out
+
+    def _initialize(self, frame: Frame):
+        T_gt = np.asarray(frame.T_gt)
+        self.poses_est[0] = T_gt
+        self.exposures[0] = np.zeros(2)
+        kfs.store_keyframe(self.store, 0, frame, T_gt, np.zeros(2))
+        self.kf_slot[0] = 0
+        self.kf_indices = [0]
+        self.kf_total = 1
+        self.window = [0]
+        n = self._spawn_gaussians(frame, self._pose_tensor(T_gt), np.zeros(2), init=True)
+        Log(f"Init: spawned {n} Gaussians", tag="4DGS-SLAM")
+
+        vw = self.map_cfg.num_window_views
+        slots = np.zeros(vw, np.int64)
+        valid = np.arange(vw) == 0
+        opt_pose = np.zeros(vw, bool)
+        pool = np.zeros(1, np.int64)
+        pose_adam = init_pose_adam(vw, self.device)
+        done = 0
+        res = None
+        while done < self.init_itr_num:
+            boundary = self.init_gaussian_update - (done % self.init_gaussian_update)
+            to_reset = self.init_gaussian_reset - done
+            chunk = int(min(self.init_itr_num - done, boundary,
+                            to_reset if to_reset > 0 else 1 << 30))
+            res = self._map(slots, valid, opt_pose, pool, 0, pose_adam, chunk, -1)
+            pose_adam = res.pose_adam
+            done += chunk
+            self.iteration_count += chunk
+            if done % self.init_gaussian_update == 0 and done < self.init_itr_num:
+                self._densify(self.init_gaussian_th, self.init_gaussian_extent, 0.0)
+            if done == self.init_gaussian_reset:
+                self.gmap, self.adam = gm.reset_opacity(self.gmap, self.adam)
+
+        vis, out = self._visibility_at(self.store.T_cw[0])
+        self.occ_visibility[0] = vis
+        self.median_depth = float(median_depth(out.depth, out.alpha)[0])
+        loss = float("nan") if res is None else res.final_loss
+        Log(f"Initialized map: {self.gmap.num_alive} Gaussians, final loss {loss:.4f}",
+            tag="4DGS-SLAM")
+
+    def _assign_kf_slot(self, idx: int) -> int:
+        """Slot for a new keyframe, with wraparound eviction of the old
+        keyframe that held it from every id-keyed structure."""
+        slot = self.kf_total % self.store.capacity
+        self.kf_total += 1
+        for old in [k for k, s in self.kf_slot.items() if s == slot]:
+            del self.kf_slot[old]
+            self.occ_visibility.pop(old, None)
+            if old in self.kf_indices:
+                self.kf_indices.remove(old)
+            if old in self.window:
+                self.window.remove(old)
+        self.kf_slot[idx] = slot
+        self.kf_indices.append(idx)
+        return slot
+
+    def _window_arrays(self):
+        """The mapping view set: window[:3] + covisibility picks (key_opt),
+        and the replay pool of the other keyframes."""
+        vw = self.map_cfg.num_window_views
+        key_opt = list(self.window[:3])
+        if len(self.window) > 3:
+            anchor = self.window[0]
+            picks = kfs.keyframe_selection_overlap(
+                self.store.depths[self.kf_slot[anchor]].cpu().numpy(),
+                self.poses_est[anchor],
+                self.intr,
+                {k: self.poses_est[k] for k in self.kf_indices},
+                before_uid=self.window[2],
+                max_selected=self.window_size - self.pose_window,
+                rng=self.rng,
+            )
+            key_opt += [int(p) for p in picks if int(p) not in key_opt]
+        key_opt = key_opt[:vw]
+        slots = np.zeros(vw, np.int64)
+        valid = np.zeros(vw, bool)
+        opt_pose = np.zeros(vw, bool)
+        for i, kf in enumerate(key_opt):
+            slots[i] = self.kf_slot[kf]
+            valid[i] = True
+            opt_pose[i] = i < self.pose_window
+        pool = [self.kf_slot[k] for k in self.kf_indices if k not in key_opt]
+        return slots, valid, opt_pose, np.asarray(pool or [0], np.int64), len(pool), key_opt
+
+    def _run_mapping(self, total_iters: int, step_after: int):
+        """`total_iters` mapping iterations, in chunks broken at the
+        densify/reset cadence boundaries."""
+        slots, valid, opt_pose, pool, pool_size, key_opt = self._window_arrays()
+        pose_adam = init_pose_adam(self.map_cfg.num_window_views, self.device)
+        done = 0
+        for chunk, new_it, fire in mapping_cadence(
+            total_iters, step_after, self.iteration_count,
+            self.gaussian_update_every, self.gaussian_update_offset, self.gaussian_reset,
+        ):
+            res = self._map(slots, valid, opt_pose, pool, pool_size, pose_adam, chunk,
+                            step_after - done)
+            pose_adam = res.pose_adam
+            done += chunk
+            self.iteration_count = new_it
+            if fire == "densify":
+                self._densify(self.gaussian_th, self.gaussian_extent, self.size_threshold)
+            elif fire == "reset":
+                vis = window_visibility(self.gmap, self.store, slots, valid, self.intr,
+                                        self.map_cfg)
+                self.gmap, self.adam = gm.reset_opacity_nonvisible(
+                    self.gmap, self.adam, torch.any(vis, dim=0)
+                )
+
+        # occlusion-aware visibility of the window, n_obs, pose resync
+        vw = self.map_cfg.num_window_views
+        in_window = self.window[:vw]
+        vw_slots = np.zeros(vw, np.int64)
+        vw_valid = np.arange(vw) < len(in_window)
+        vw_slots[:len(in_window)] = [self.kf_slot[kf] for kf in in_window]
+        vis = window_visibility(self.gmap, self.store, vw_slots, vw_valid, self.intr,
+                                self.map_cfg)
+        self.gmap = self.gmap._replace(n_obs=vis.sum(dim=0).to(torch.int32))
+        vis = vis.cpu().numpy()
+        for i, kf in enumerate(in_window):
+            self.occ_visibility[kf] = vis[i]
+        for kf in key_opt:
+            slot = self.kf_slot[kf]
+            self.poses_est[kf] = self.store.T_cw[slot].cpu().numpy()
+            self.exposures[kf] = self.store.exposure[slot].cpu().numpy()
+
+    def _handle_keyframe(self, idx: int, frame: Frame, curr_visibility: np.ndarray):
+        slot = self._assign_kf_slot(idx)
+        kfs.store_keyframe(self.store, slot, frame, self.poses_est[idx], self.exposures[idx])
+        self.occ_visibility[idx] = curr_visibility
+        self.window, _ = kfs.add_to_window(
+            idx, curr_visibility, self.occ_visibility, self.window,
+            self.poses_est, self.kf_cutoff, self.window_size,
+        )
+        self._spawn_gaussians(frame, self._pose_tensor(self.poses_est[idx]),
+                              self.exposures[idx], init=False)
+        # map parameters step only after the first 100 of a long phase
+        step_after = 100 if self.kf_iters > 100 else -1
+        self._run_mapping(self.kf_iters, step_after)
+
+    def run(self) -> dict:
+        """Process the sequence; returns frames/s, the map size and the
+        seconds spent per phase."""
+        t0 = time.time()
+        self._phase = {"track": 0.0, "kf_check": 0.0, "keyframe": 0.0, "track_iters": 0}
+        last_kf = 0
+        for idx, frame in iter_frames(self.dataset, self.edge_threshold, self.n_frames,
+                                      device=self.device):
+            if idx == 0:
+                self._initialize(frame)
+                last_kf = 0
+                continue
+
+            _pt = time.time()
+            res = track_frame(
+                self.gmap, frame, self._pose_tensor(self.poses_est[idx - 1]),
+                self._pose_tensor(self.exposures.get(idx - 1, np.zeros(2))),
+                self.intr, self.track_cfg,
+            )
+            self._note_pairs(res.num_pairs, res.overflow)
+            self.poses_est[idx] = res.T_cw.cpu().numpy()
+            self.exposures[idx] = res.exposure.cpu().numpy()
+            self.median_depth = float(res.median_depth)
+            self._phase["track"] += time.time() - _pt
+            self._phase["track_iters"] += res.n_iters
+
+            check_time = (idx - last_kf) >= self.kf_interval
+            if not check_time:
+                continue
+            _pt = time.time()
+            curr_visibility, _ = self._visibility_at(res.T_cw)
+            last_vis = self.occ_visibility[last_kf]
+            if len(self.window) < self.window_size:
+                union = np.count_nonzero(curr_visibility | last_vis)
+                inter = np.count_nonzero(curr_visibility & last_vis)
+                create_kf = (inter / union if union else 0.0) < self.kf_overlap
+            else:
+                create_kf = kfs.is_keyframe(
+                    self.poses_est[idx], self.poses_est[last_kf], self.median_depth,
+                    curr_visibility, last_vis, self.kf_translation,
+                    self.kf_min_translation, self.kf_overlap,
+                )
+            create_kf = create_kf or (idx - last_kf) >= 5
+            self._phase["kf_check"] += time.time() - _pt
+
+            if create_kf:
+                _pt = time.time()
+                self._handle_keyframe(idx, frame, curr_visibility)
+                self._sync()
+                dt = time.time() - _pt
+                self._phase["keyframe"] += dt
+                last_kf = idx
+                Log(f"KF {idx}: {self.gmap.num_alive} gaussians, window {self.window} "
+                    f"({dt:.1f}s)", tag="Backend")
+
+        self._sync()
+        elapsed = time.time() - t0
+        self.metrics["fps"] = self.n_frames / elapsed
+        self.metrics["n_frames"] = self.n_frames
+        self.metrics["n_gaussians"] = self.gmap.num_alive
+        self.metrics["phase_s"] = dict(self._phase)
+        Log(f"FPS {self.metrics['fps']:.3f} ({self.n_frames} frames / {elapsed:.1f}s); "
+            f"phases {self._phase}", tag="4DGS-SLAM")
+        return self.metrics
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    def eval_ate(self) -> dict:
+        from fourdgs_torch.eval.ate import evaluate_ate
+
+        ids = sorted(self.poses_est)
+        return evaluate_ate([self.poses_est[i] for i in ids],
+                            [np.asarray(self.dataset.poses[i]) for i in ids])
+
+    def eval_rendering(self, interval: int | None = None) -> dict:
+        from fourdgs_torch.eval.rendering import eval_rendering
+
+        def render_at(idx):
+            out = render_keyframe(self.gmap, self._pose_tensor(self.poses_est[idx]),
+                                  self.intr, self.map_cfg)
+            return out.color, out.depth
+
+        return eval_rendering(render_at, self.dataset, sorted(self.poses_est),
+                              mask_dynamic=True, interval=interval or 1)
