@@ -6,15 +6,19 @@
 Phases, one line each, in order (any failure exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
   2. build    both compositor kernels from fourdgs_torch/ops/rasterize/csrc
-  3. compare  each kernel against its plain torch version at 640x480 with 1
-              and 10 views of a map initialised from the synthetic sequence:
-              forward outputs, n_touched and gradients, with times and bounds
+  3. compare  each kernel against its plain torch version at 640x480 with 1,
+              2 and 10 views of a map initialised from the synthetic
+              sequence (fourdgs_torch/kernel_check.py: forward outputs,
+              n_contrib and n_touched exactly equal, gradients within 1e-5
+              of each field's largest magnitude); with times and bounds
   4. tracking 100 track_frame iterations at 640x480, capacity 2^15, with a
               device profile of the loop
   5. slam     SLAM.run at the benchmark's width and capacity on 10 frames,
               held to ATE < 0.05 m, PSNR > 15 and L1 depth < 1.2
-  6. kernels  one JSON line: per kernel its launches during the SLAM phase,
-              error against its plain version, times and bound
+  6. kernels  one JSON line: per kernel its launches during the SLAM phase
+              (in all and by number of views), largest error against its
+              plain version, times and bound at 10 views (the full mapping
+              window), and (*_1view, *_2view) at 1 and 2 views
 then the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -30,8 +34,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-W, H = 640, 480
-CAPACITY = 1 << 15
+VIEWS = (1, 2, 10)      # tracking and initialisation, this run's mapping, the full window
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_OPS_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # per (pixel, pair) operation counts of the kernels' arithmetic
@@ -47,47 +50,6 @@ T0 = time.time()
 
 def log(msg: str):
     print(f"[{time.time() - T0:8.1f}s] {msg}", flush=True)
-
-
-def bench_config(n_frames: int):
-    from fourdgs_torch.utils.config import ConfigDict
-
-    return ConfigDict.wrap({
-        "Dataset": {
-            "type": "synthetic", "dataset_path": "", "num_frames": n_frames,
-            "points_per_wall": 6000, "pcd_downsample": 128, "pcd_downsample_init": 32,
-            "adaptive_pointsize": True, "point_size": 0.01,
-            "Calibration": {"fx": 535.4, "fy": 539.2, "cx": 320.1, "cy": 247.6,
-                            "width": W, "height": H, "depth_scale": 1.0},
-        },
-        "Training": {
-            "init_itr_num": 1050, "init_gaussian_update": 100, "init_gaussian_reset": 500,
-            "init_gaussian_th": 0.005, "init_gaussian_extent": 30,
-            "tracking_itr_num": 100, "mapping_itr_num": 50, "keyframe_mapping_iters": 200,
-            "gaussian_update_every": 150, "gaussian_update_offset": 50,
-            "gaussian_th": 0.7, "gaussian_extent": 1.0, "gaussian_reset": 2001,
-            "size_threshold": 20, "kf_interval": 5, "window_size": 8, "pose_window": 3,
-            "edge_threshold": 1.1, "rgb_boundary_threshold": 0.01, "alpha": 0.9,
-            "kf_translation": 0.08, "kf_min_translation": 0.05, "kf_overlap": 0.9,
-            "kf_cutoff": 0.3, "monocular": False,
-            "lr": {"cam_rot_delta": 0.003, "cam_trans_delta": 0.001},
-        },
-        "opt_params": {"densify_grad_threshold": 0.0002},
-    })
-
-
-def cuda_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def work_counts(fields, bins, grid, n_contrib):
@@ -109,56 +71,33 @@ def work_counts(fields, bins, grid, n_contrib):
 
 
 def compare_kernels(slam, n_views: int, seed: int) -> dict:
-    """Hold both kernels against their plain versions on `n_views` views
-    of the current map at the sequence's ground-truth poses."""
+    """Hold both kernels' wrappers against their plain versions on
+    `n_views` views of the current map at the sequence's ground-truth
+    poses, and time them."""
     import torch
 
+    from fourdgs_torch import kernel_check as KC
     from fourdgs_torch.ops.rasterize import compositor as C
     from fourdgs_torch.ops.rasterize import kernels as K
-    from fourdgs_torch.ops.rasterize.api import screen_fields
-    from fourdgs_torch.slam.mapping import _activated
 
     dev = slam.device
-    g = slam.gmap
-    poses = torch.stack([slam._pose_tensor(slam.dataset.poses[i]) for i in range(n_views)])
-    with torch.no_grad():
-        _, fields, bins, grid = screen_fields(
-            *_activated(g.params), g.alive, poses, slam.intr.proj(device=dev),
-            config=slam.raster, **slam.intr.raster_kw())
-    fields = fields.contiguous()
+    fields, bins, grid = KC.compositor_inputs(slam, n_views)
     args = (fields, bins.pair_gid, bins.tile_start, bins.tile_count)
     kw = dict(tiles_per_view=grid.tiles, tx_n=grid.tx_n)
-    out_k, nc_k, nt_k = K.composite_fwd(*args, width=W, height=H, **kw)
-    out_p, nc_p, nt_p = C.composite_forward_plain(fields, bins, grid)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    grad_out = torch.randn(out_k.shape, generator=gen, device=dev)
-    d_k = K.composite_bwd(*args, out_k, nc_k, grad_out, **kw)
-    d_p = C.composite_backward_plain(fields, bins, grid, out_p, nc_p, grad_out)
-    torch.cuda.synchronize()
-
-    err = {
-        "color": float((out_k[:, :3] - out_p[:, :3]).abs().max()),
-        "depth": float((out_k[:, 3] - out_p[:, 3]).abs().max()),
-        "T_final": float((out_k[:, 4] - out_p[:, 4]).abs().max()),
-        "n_contrib": int((nc_k != nc_p).sum()),
-        "n_touched": int((nt_k != nt_p).sum()),
-    }
-    # gradients: per field, against 3e-3 of that field's largest magnitude
-    scale = d_p.abs().amax(dim=(0, 1)).clamp(min=1e-6)
-    grad_err = (d_k - d_p).abs().amax(dim=(0, 1))
-    err["grad_abs"] = float(grad_err.max())
-    err["grad_rel"] = float((grad_err / scale).max())
-    ok = (err["color"] <= 2e-5 and err["T_final"] <= 2e-5 and err["depth"] <= 2e-4
-          and err["n_touched"] == 0 and err["grad_rel"] <= 3e-3)
+    fwd = lambda: K.composite_fwd(*args, width=grid.width, height=grid.height, **kw)  # noqa: E731
+    bwd = lambda out, nc, g: K.composite_bwd(*args, out, nc, g, **kw)  # noqa: E731
+    ref = KC.reference(fields, bins, grid, seed)
+    held = KC.hold(fwd, bwd, ref)
 
     reps = 20
-    fwd_ms = cuda_ms(lambda: K.composite_fwd(*args, width=W, height=H, **kw), reps)
-    bwd_ms = cuda_ms(lambda: K.composite_bwd(*args, out_k, nc_k, grad_out, **kw), reps)
-    plain_fwd_ms = cuda_ms(lambda: C.composite_forward_plain(fields, bins, grid), 2)
-    plain_bwd_ms = cuda_ms(
-        lambda: C.composite_backward_plain(fields, bins, grid, out_p, nc_p, grad_out), 2)
+    out_k, nc_k, _ = fwd()
+    fwd_ms = KC.cuda_ms(fwd, reps)
+    bwd_ms = KC.cuda_ms(lambda: bwd(out_k, nc_k, ref.grad_out), reps)
+    plain_fwd_ms = KC.cuda_ms(lambda: C.composite_forward_plain(fields, bins, grid), 2)
+    plain_bwd_ms = KC.cuda_ms(lambda: C.composite_backward_plain(
+        fields, bins, grid, ref.out, ref.n_contrib, ref.grad_out), 2)
 
-    visited, applied = work_counts(fields, bins, grid, nc_p)
+    visited, applied = work_counts(fields, bins, grid, ref.n_contrib)
     n_pairs = int(bins.pair_gid.numel())
     rows = int(torch.unique(bins.pair_gid.long()
                             + (torch.repeat_interleave(
@@ -180,7 +119,7 @@ def compare_kernels(slam, n_views: int, seed: int) -> dict:
     return {
         "views": n_views, "gaussians": slam.gmap.num_alive, "pairs": n_pairs,
         "kmax": int(bins.tile_count.max()), "visited": visited, "applied": applied,
-        "err": err, "ok": ok,
+        "err": held["err"], "ok": held["ok"],
         "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_fwd_ms": plain_fwd_ms,
         "plain_bwd_ms": plain_bwd_ms,
         "fwd_bytes": fwd_bytes, "fwd_ops": fwd_ops, "fwd_bound_ms": fb, "fwd_bound_by": fby,
@@ -237,12 +176,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     try:
+        from fourdgs_torch import kernel_check as KC
         from fourdgs_torch.ops.rasterize import kernels as K
     except ImportError as e:
         print(f"chip_smoke: the fourdgs_torch package is not beside this script ({e})",
               file=sys.stderr)
         return 2
-    from fourdgs_torch.data.prefetch import iter_frames
     from fourdgs_torch.slam.runner import SLAM
     from fourdgs_torch.slam.tracking import track_frame
 
@@ -259,23 +198,17 @@ def main() -> int:
     log(f"build: {record['build_s']:.1f}s (" + ", ".join(sorted(K.SOURCES)) + ")")
     for name, rep in sorted(reports.items()):
         print(f"nvcc {K.SOURCES[name]}:\n" + "\n".join(
-            ln for ln in rep.splitlines() if "ptxas info" in ln), flush=True)
+            ln for ln in rep.splitlines() if "ptxas info" in ln or "spill" in ln), flush=True)
 
     # ---- phase 3: kernels against their plain versions on an initialised map
     t = time.time()
-    cfg = bench_config(40)
-    cfg["Training"]["init_itr_num"] = 100
     log("compare: map from 100 init iterations on frame 0 of the synthetic sequence "
         "(the SLAM phase runs the full 1050)")
-    slam = SLAM(cfg, max_frames=10, capacity=CAPACITY, max_capacity=CAPACITY,
-                max_keyframes=64)
-    frames = dict(iter_frames(slam.dataset, slam.edge_threshold, 2, device=slam.device))
-    slam._initialize(frames[0])
+    slam, frames = KC.sample_map()
     compare = {}
-    for views in (1, 10):
-        r = compare_kernels(slam, views, seed=views)
-        compare[f"{W}x{H}x{views}"] = r
-        log(f"compare {W}x{H}x{views}: " + json.dumps(r))
+    for views in VIEWS:
+        compare[views] = r = compare_kernels(slam, views, seed=views)
+        log(f"compare {KC.WIDTH}x{KC.HEIGHT}x{views}: " + json.dumps(r))
         if not r["ok"]:
             raise SystemExit(f"kernel disagrees with its plain version at {views} views: {r['err']}")
     record["compare"] = compare
@@ -310,19 +243,21 @@ def main() -> int:
     t = time.time()
     log("slam cuts against bench.py: 10 frames of its 40-frame sequence; widths, "
         "capacity 2^15, iteration counts, window 8 + 2 replay unchanged")
-    slam = SLAM(bench_config(40), max_frames=10, capacity=CAPACITY, max_capacity=CAPACITY,
-                max_keyframes=64)
-    K.composite_fwd.launches = 0
-    K.composite_bwd.launches = 0
+    slam = SLAM(KC.bench_config(40), max_frames=10, capacity=KC.CAPACITY,
+                max_capacity=KC.CAPACITY, max_keyframes=64)
+    wrappers = {"composite_fwd": K.composite_fwd, "composite_bwd": K.composite_bwd}
+    for k in wrappers.values():
+        k.launches_by_views.clear()
     metrics = slam.run()
-    launches = {"composite_fwd": K.composite_fwd.launches,
-                "composite_bwd": K.composite_bwd.launches}
+    by_views = {name: dict(k.launches_by_views) for name, k in wrappers.items()}
+    launches = {name: sum(n.values()) for name, n in by_views.items()}
     ate = slam.eval_ate()["rmse"]
     rend = slam.eval_rendering()
     result = {"ate_rmse_m": ate, "psnr": rend["mean_psnr"], "l1_depth": rend["mean_l1_depth"],
               "ssim": rend["mean_ssim"], "fps": metrics["fps"], "keyframes": len(slam.kf_indices),
               "gaussians": slam.gmap.num_alive, "max_pairs_per_view": slam.max_pairs_seen,
-              "phase_s": metrics["phase_s"], "launches": launches}
+              "phase_s": metrics["phase_s"], "launches": launches,
+              "launches_by_views": by_views}
     record["slam"] = result
     log("slam: " + json.dumps(result))
     log(f"phase slam: {time.time() - t:.1f}s")
@@ -333,26 +268,28 @@ def main() -> int:
     if not all(np.isfinite(slam.poses_est[i]).all() for i in slam.poses_est):
         raise SystemExit("non-finite pose")
 
-    # ---- phase 6: the kernels line
-    main10 = compare[f"{W}x{H}x10"]
-    err10 = main10["err"]
+    # ---- phase 6: the kernels line; ms, plain_ms and bound_ms are at 10
+    # views (the full mapping window), the *_1view and *_2view keys at the
+    # shapes this run launched (tracking and initialisation; mapping with
+    # its 2 keyframes); max_abs_err over all three
+    def entry(name, short, replaces, err_keys):
+        timed = {"ms": f"{short}_ms", "plain_ms": f"plain_{short}_ms",
+                 "bound_ms": f"{short}_bound_ms", "bound_by": f"{short}_bound_by"}
+        e = {"name": name, "route": "cuda",
+             "source": f"fourdgs_torch/ops/rasterize/csrc/{name}.cu",
+             "replaces": replaces, "launches": launches[name],
+             "launches_by_views": by_views[name],
+             "max_abs_err": max(compare[v]["err"][k] for v in VIEWS for k in err_keys),
+             **{key: compare[10][src] for key, src in timed.items()}, "library_ms": None}
+        for v in (1, 2):
+            e.update({f"{key}_{v}view": compare[v][src] for key, src in timed.items()})
+        return e
+
     line = {"kernels": [
-        {"name": "composite_fwd", "route": "cuda",
-         "source": "fourdgs_torch/ops/rasterize/csrc/composite_fwd.cu",
-         "replaces": "fourdgs/ops/rasterize/tile_kernel.py:147",
-         "launches": launches["composite_fwd"],
-         "max_abs_err": max(err10["color"], err10["depth"], err10["T_final"]),
-         "ms": main10["fwd_ms"], "plain_ms": main10["plain_fwd_ms"],
-         "bound_ms": main10["fwd_bound_ms"], "bound_by": main10["fwd_bound_by"],
-         "library_ms": None},
-        {"name": "composite_bwd", "route": "cuda",
-         "source": "fourdgs_torch/ops/rasterize/csrc/composite_bwd.cu",
-         "replaces": "fourdgs/ops/rasterize/tile_kernel.py:226",
-         "launches": launches["composite_bwd"],
-         "max_abs_err": err10["grad_abs"],
-         "ms": main10["bwd_ms"], "plain_ms": main10["plain_bwd_ms"],
-         "bound_ms": main10["bwd_bound_ms"], "bound_by": main10["bwd_bound_by"],
-         "library_ms": None},
+        entry("composite_fwd", "fwd", "fourdgs/ops/rasterize/tile_kernel.py:147",
+              ("color", "depth", "T_final")),
+        entry("composite_bwd", "bwd", "fourdgs/ops/rasterize/tile_kernel.py:226",
+              ("grad_abs",)),
     ]}
     record["kernels"] = line["kernels"]
     record["total_s"] = time.time() - T0

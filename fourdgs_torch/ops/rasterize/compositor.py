@@ -89,6 +89,50 @@ def _inv_one_minus(alpha):
     return 1.0 / torch.clamp(1.0 - alpha, min=1e-6)
 
 
+# margins of the kernels' cull (composite_common.cuh, which derives them)
+EXTENT_COND = 64.0 / 2**24   # float32 rounding of power, per unit of condition number
+EXTENT_DET = 8.0 / 2**24     # float32 rounding of ca cc - cb^2, relative to ca cc
+EXTENT_LOG = 1e-5            # expf's, logf's and the products' rounding, in log space
+EXTENT_REL = 1e-5            # relative widening of the half-widths
+
+
+def _round_out(x: torch.Tensor, down: bool) -> torch.Tensor:
+    """float64 -> float32, rounded toward -inf (down) or +inf."""
+    f = x.float()
+    inward = f.double() > x if down else f.double() < x
+    return torch.where(inward, torch.nextafter(f, torch.full_like(f, -1.0 if down else 1.0)
+                                               * float("inf")), f)
+
+
+def pair_extent(rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernels' cull (`pair_extent` in
+    composite_common.cuh, the same float32 steps), which the kernels use
+    and the CPU path does not. For field rows (..., 10), the box (..., 4)
+    [x_lo, x_hi, y_lo, y_hi] in pixel coordinates, float32, outside which
+    the pair is invalid at every pixel: ±inf (no cull) where a field is not
+    finite or the conic is not positive definite or too ill-conditioned; an
+    empty box (lo > hi) where op < 1/255."""
+    f = rows.detach().to(torch.float32)
+    mx, my, ca, cb, cc, op = (f[..., i] for i in (F_MX, F_MY, F_CA, F_CB, F_CC, F_OP))
+    c = lambda v: torch.tensor(v, dtype=torch.float32, device=f.device)  # noqa: E731
+    alpha_min = c(ALPHA_MIN)
+    cacc = ca * cc
+    det = (cacc - cb * cb) - c(EXTENT_DET) * cacc
+    shrink = 1.0 - c(EXTENT_COND) * (cacc / det)
+    tau = 2.0 * (torch.clamp(torch.log(op / alpha_min), min=0.0) + c(EXTENT_LOG)) / shrink
+    hx = (torch.sqrt(tau * cc / det) * (1.0 + c(EXTENT_REL)) + 1.0).double()
+    hy = (torch.sqrt(tau * ca / det) * (1.0 + c(EXTENT_REL)) + 1.0).double()
+    box = torch.stack([_round_out(mx.double() - hx, True), _round_out(mx.double() + hx, False),
+                       _round_out(my.double() - hy, True), _round_out(my.double() + hy, False)],
+                      dim=-1)
+    inf = c([-1.0, 1.0, -1.0, 1.0]) * float("inf")
+    finite = torch.stack([mx, my, ca, cb, cc, op]).isfinite().all(0)
+    none = finite & (op * (1.0 + c(EXTENT_REL)) < alpha_min)
+    cull = finite & ~none & (ca > 0) & (cc > 0) & (det > 0) & (shrink >= 0.5)
+    box = torch.where(cull[..., None], box, inf)
+    return torch.where(none[..., None], -inf, box)
+
+
 def composite_forward_plain(fields: torch.Tensor, bins: TileBins, grid: TileGrid):
     """Plain version of composite_fwd.cu. Returns (out (V*T, 5, 256),
     n_contrib (V*T, 256) int32, n_touched (V, N+1) int32).
