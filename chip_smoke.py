@@ -6,19 +6,32 @@
 Phases, one line each, in order (any failure exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
   2. build    both compositor kernels from fourdgs_torch/ops/rasterize/csrc
-  3. compare  each kernel against its plain torch version at 640x480 with 1,
-              2 and 10 views of a map initialised from the synthetic
-              sequence (fourdgs_torch/kernel_check.py: forward outputs,
-              n_contrib and n_touched exactly equal, gradients within 1e-5
-              of each field's largest magnitude); with times and bounds
+  3. compare  each kernel against its plain torch version at 640x480 on
+              views of a map initialised from the synthetic sequence, at
+              every number of views in VIEWS: 1, 2 and 10 (tracking, the
+              static phase's mapping, the full static window), 26 (the
+              full 4D window: 10 views of RGB and 16 whose colour channels
+              carry signed flow payloads), and the numbers the dynamic
+              phase launches (fourdgs_torch/kernel_check.py: forward
+              outputs, n_contrib and n_touched exactly equal, gradients
+              within 1e-5 of each field's largest magnitude); with times
+              and bounds
   4. tracking 100 track_frame iterations at 640x480, capacity 2^15, with a
               device profile of the loop
   5. slam     SLAM.run at the benchmark's width and capacity on 10 frames,
               held to ATE < 0.05 m, PSNR > 15 and L1 depth < 1.2
-  6. kernels  one JSON line: per kernel its launches during the SLAM phase
-              (in all and by number of views), largest error against its
-              plain version, times and bound at 10 views (the full mapping
-              window), and (*_1view, *_2view) at 1 and 2 views
+  6. dynamic  SLAM(dynamic=True).run at the `bench.py --dynamic` width and
+              capacity on 15 of its 40 frames (keyframes 0, 5, 8 = dystart
+              and 13), held to ATE < 0.08 m, PSNR > 14, keyframe 8, more
+              than 20 dynamic Gaussians at the deformation's start (its
+              control nodes) and a learned motion; with the seconds per
+              phase, ms per dynamic mapping iteration and a device profile
+              of one
+  7. kernels  one JSON line: per kernel its launches in the SLAM phase and
+              in the dynamic phase (in all and by number of views), largest
+              error against its plain version, times and bound at 10 views
+              (the full static window), and (*_1view, *_2view, *_26view)
+              at 1, 2 and 26 views
 then the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -34,7 +47,13 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-VIEWS = (1, 2, 10)      # tracking and initialisation, this run's mapping, the full window
+# numbers of views held in phase 3: tracking and initialisation (1), the
+# static phase's mapping (2), the full static window (10), the full 4D
+# window (26), and what the dynamic phase launches besides: its window
+# visibility (3, 4), its first dynamic keyframe (7 = 3 views and 2 flow
+# pairs) and its second (10 = 4 and 3)
+VIEWS = (1, 2, 3, 4, 7, 10, 26)
+FLOW_VIEWS = {7: 4, 26: 16}   # of those views, how many carry flow payloads
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_OPS_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # per (pixel, pair) operation counts of the kernels' arithmetic
@@ -73,7 +92,8 @@ def work_counts(fields, bins, grid, n_contrib):
 def compare_kernels(slam, n_views: int, seed: int) -> dict:
     """Hold both kernels' wrappers against their plain versions on
     `n_views` views of the current map at the sequence's ground-truth
-    poses, and time them."""
+    poses (the last FLOW_VIEWS[n_views] with flow payloads), and time
+    them."""
     import torch
 
     from fourdgs_torch import kernel_check as KC
@@ -81,7 +101,8 @@ def compare_kernels(slam, n_views: int, seed: int) -> dict:
     from fourdgs_torch.ops.rasterize import kernels as K
 
     dev = slam.device
-    fields, bins, grid = KC.compositor_inputs(slam, n_views)
+    n_flow = FLOW_VIEWS.get(n_views, 0)
+    fields, bins, grid = KC.compositor_inputs(slam, n_views, n_flow, seed)
     args = (fields, bins.pair_gid, bins.tile_start, bins.tile_count)
     kw = dict(tiles_per_view=grid.tiles, tx_n=grid.tx_n)
     fwd = lambda: K.composite_fwd(*args, width=grid.width, height=grid.height, **kw)  # noqa: E731
@@ -117,7 +138,8 @@ def compare_kernels(slam, n_views: int, seed: int) -> dict:
     fb, fby = bound(fwd_bytes, fwd_ops)
     bb, bby = bound(bwd_bytes, bwd_ops)
     return {
-        "views": n_views, "gaussians": slam.gmap.num_alive, "pairs": n_pairs,
+        "views": n_views, "flow_views": n_flow, "gaussians": slam.gmap.num_alive,
+        "pairs": n_pairs,
         "kmax": int(bins.tile_count.max()), "visited": visited, "applied": applied,
         "err": held["err"], "ok": held["ok"],
         "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_fwd_ms": plain_fwd_ms,
@@ -129,38 +151,76 @@ def compare_kernels(slam, n_views: int, seed: int) -> dict:
 
 def profile_tracking(slam, frame, T_init, cfg, iters: int, ms_per_iter: float) -> dict:
     """Device time and launches of `iters` tracking iterations under the
-    profiler. The idle share sets that device time against `ms_per_iter`,
-    the iteration's wall time measured without the profiler, which slows
-    the host."""
+    profiler, against `ms_per_iter`, the iteration's wall time measured
+    without it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from fourdgs_torch.slam.tracking import track_frame
 
     short = cfg._replace(max_iters=iters)
-    track_frame(slam.gmap, frame, T_init, torch.zeros(2, device=slam.device), slam.intr, short)
+    run = lambda: track_frame(slam.gmap, frame, T_init,  # noqa: E731
+                              torch.zeros(2, device=slam.device), slam.intr, short)
+    n = max(run().n_iters, 1)
+    return {"iters": n, **_device_profile(run, n, ms_per_iter)}
+
+
+def _device_profile(fn, n_iters: int, ms_per_iter: float) -> dict:
+    """Device time and launches of `fn()` (n_iters iterations) under the
+    profiler, set against `ms_per_iter`, the wall time per iteration
+    measured without it (the profiler slows the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.time()
-        res = track_frame(slam.gmap, frame, T_init, torch.zeros(2, device=slam.device),
-                          slam.intr, short)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t
     kernels = [e for e in prof.key_averages() if e.device_time_total > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    n = max(res.n_iters, 1)
-    busy_ms = busy_us / 1e3 / n
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:6]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / n_iters
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
     return {
-        "iters": res.n_iters, "profiled_wall_ms_per_iter": wall * 1e3 / n,
+        "profiled_wall_ms_per_iter": wall * 1e3 / n_iters,
         "device_busy_ms_per_iter": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / ms_per_iter),
-        "kernel_launches_per_iter": launches / n,
-        "top_kernels": [{"kernel": e.key[:80], "ms_per_iter": e.device_time_total / 1e3 / n,
-                         "calls_per_iter": e.count / n} for e in top],
+        "kernel_launches_per_iter": sum(e.count for e in kernels) / n_iters,
+        "top_kernels": [{"kernel": e.key[:80], "ms_per_iter": e.device_time_total / 1e3 / n_iters,
+                         "calls_per_iter": e.count / n_iters} for e in top],
     }
+
+
+def profile_dynamic(slam, iters: int) -> dict:
+    """`iters` dynamic mapping iterations on the finished run's window,
+    timed by the wall clock, then one under the profiler. Moves the
+    window's poses and the map: run it after the run is evaluated."""
+    import torch
+
+    from fourdgs_torch.slam import mapping_dynamic as mdyn
+    from fourdgs_torch.slam.mapping import init_pose_adam
+
+    slots, valid, opt_pose, pool, pool_size, key_opt = slam._window_arrays()
+    pair_slots, fwd, bwd = slam._flow_arrays(key_opt)
+
+    def chunk(n):
+        return mdyn.map_chunk_dynamic(
+            slam.gmap, slam.adam, slam.store, slam.deform, slam.deform_adam, slots, valid,
+            opt_pose, pair_slots, fwd, bwd, pool, pool_size,
+            init_pose_adam(slam.map_cfg.num_window_views, slam.device),
+            slam.draws.dynamic_chunk(n, pool_size, slam.map_cfg.num_views), n, -1,
+            slam.iteration_count, slam.intr, slam.map_cfg, flow_weight=slam.flow_weight,
+            flow_weight_fine=slam.flow_weight_fine, time_interval=slam.time_interval)
+
+    chunk(1)
+    torch.cuda.synchronize()
+    t = time.time()
+    chunk(iters)
+    torch.cuda.synchronize()
+    ms = (time.time() - t) * 1e3 / iters
+    n_views = int(valid.sum()) + 2 * int((valid & (pair_slots >= 0)).sum()) + min(pool_size, 2)
+    return {"iters": iters, "views": n_views, "ms_per_iter": ms,
+            "profile": _device_profile(lambda: chunk(1), 1, ms)}
 
 
 def main() -> int:
@@ -268,10 +328,68 @@ def main() -> int:
     if not all(np.isfinite(slam.poses_est[i]).all() for i in slam.poses_est):
         raise SystemExit("non-finite pose")
 
-    # ---- phase 6: the kernels line; ms, plain_ms and bound_ms are at 10
-    # views (the full mapping window), the *_1view and *_2view keys at the
-    # shapes this run launched (tracking and initialisation; mapping with
-    # its 2 keyframes); max_abs_err over all three
+    del slam
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: SLAM(dynamic=True).run, the 4D path; launches counted
+    # here are the dynamic path's
+    t = time.time()
+    n_dyn = 15
+    log(f"dynamic cuts against bench.py --dynamic: {n_dyn} frames of its 40-frame sequence; "
+        "widths, capacity 2^15, 512 control nodes, iteration counts, window 8 + 2 replay, "
+        "flow weights 3 and 2, dystart 8 unchanged")
+    slam = SLAM(KC.bench_dynamic_config(40), dynamic=True, max_frames=n_dyn,
+                capacity=KC.CAPACITY, max_capacity=KC.CAPACITY, max_keyframes=64)
+    for k in wrappers.values():
+        k.launches_by_views.clear()
+    metrics = slam.run()
+    dyn_by_views = {name: dict(k.launches_by_views) for name, k in wrappers.items()}
+    dyn_launches = {name: sum(n.values()) for name, n in dyn_by_views.items()}
+    ate = slam.eval_ate()["rmse"]
+    rend = slam.eval_rendering()
+    dy = slam.gmap.dygs & slam.gmap.alive
+    # the learned motion of the dynamic Gaussians between 30% and 90% of
+    # the run's time span (tests/test_end_to_end_dynamic.py holds t = 0.3
+    # and 0.9 on a sequence that spans [0, 1]; this run spans [0, 14/39])
+    span = (n_dyn - 1) / (len(slam.dataset) - 1)
+    from fourdgs_torch.models.deform import warp
+
+    with torch.no_grad():
+        d0, d1 = (warp(slam.deform, slam.gmap.params.xyz,
+                       torch.tensor(f * span, device=slam.device),
+                       motion_mask=slam.gmap.dygs)[0] for f in (0.3, 0.9))
+        motion = float(torch.linalg.norm(d1 - d0, dim=-1)[dy].median()) if dy.any() else 0.0
+    phase = metrics["phase_s"]
+    dyn = {"ate_rmse_m": ate, "psnr": rend["mean_psnr"], "l1_depth": rend["mean_l1_depth"],
+           "ssim": rend["mean_ssim"], "keyframes": list(slam.kf_indices),
+           "gaussians": slam.gmap.num_alive, "dynamic_gaussians": int(dy.sum()),
+           "control_nodes": int(slam.deform.valid.sum()) if slam.deform_init else 0,
+           "median_motion": motion, "phase_s": phase,
+           "ms_per_dyn_iter": phase["dyn_mapping"] * 1e3 / max(phase["dyn_iters"], 1),
+           "launches": dyn_launches, "launches_by_views": dyn_by_views}
+    record["dynamic"] = dyn
+    log("dynamic: " + json.dumps(dyn))
+    # more than 20 dynamic Gaussians at the deformation's start: one control
+    # node each (below node_num). The benchmark's densify, after each
+    # dynamic keyframe phase, prunes those whose opacity has not passed
+    # gaussian_th (0.7) from the 0.5 they spawn at; how many are alive at
+    # the end is reported, not held
+    if not (slam.deform_init and ate < 0.08 and rend["mean_psnr"] > 14
+            and dyn["control_nodes"] > 20 and 8 in slam.kf_indices and motion > 0.02):
+        raise SystemExit(f"dynamic SLAM result out of bounds: {dyn}")
+    if min(dyn_launches.values()) <= 0 or phase["dyn_iters"] <= 0:
+        raise SystemExit(f"the dynamic phase did not run both kernels in 4D mapping: {dyn}")
+    if not all(np.isfinite(slam.poses_est[i]).all() for i in slam.poses_est):
+        raise SystemExit("non-finite pose in the dynamic phase")
+    prof = profile_dynamic(slam, 10)
+    record["dynamic"]["iteration"] = prof
+    log("dynamic iteration: " + json.dumps(prof))
+    log(f"phase dynamic: {time.time() - t:.1f}s")
+
+    # ---- phase 7: the kernels line; ms, plain_ms and bound_ms are at 10
+    # views (the full static window), the *_1view, *_2view and *_26view
+    # keys at tracking's shape, the static phase's mapping and the full 4D
+    # window; max_abs_err over every number of views held
     def entry(name, short, replaces, err_keys):
         timed = {"ms": f"{short}_ms", "plain_ms": f"plain_{short}_ms",
                  "bound_ms": f"{short}_bound_ms", "bound_by": f"{short}_bound_by"}
@@ -279,9 +397,11 @@ def main() -> int:
              "source": f"fourdgs_torch/ops/rasterize/csrc/{name}.cu",
              "replaces": replaces, "launches": launches[name],
              "launches_by_views": by_views[name],
+             "launches_dynamic": dyn_launches[name],
+             "launches_by_views_dynamic": dyn_by_views[name],
              "max_abs_err": max(compare[v]["err"][k] for v in VIEWS for k in err_keys),
              **{key: compare[10][src] for key, src in timed.items()}, "library_ms": None}
-        for v in (1, 2):
+        for v in (1, 2, 26):
             e.update({f"{key}_{v}view": compare[v][src] for key, src in timed.items()})
         return e
 

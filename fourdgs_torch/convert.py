@@ -2,8 +2,8 @@
 
 The port imports nothing of `fourdgs`, so the converters read and write
 plain numpy structures with the reference's field names: a `GaussianMap`,
-`AdamState` or `KeyframeStore` of the reference is read through its
-attributes (any object or mapping with those names whose leaves
+`AdamState`, `KeyframeStore`, `ControlNodes` or `DeformAdam` of the
+reference is read through its attributes (any object or mapping with those names whose leaves
 `np.asarray` accepts), and `*_to_arrays` returns nested dicts of numpy
 arrays that rebuild the reference's named tuples field by field.
 """
@@ -13,8 +13,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fourdgs_torch.models.deform import (
+    HEADS,
+    ControlNodeFloats,
+    ControlNodes,
+    MLPParams,
+)
 from fourdgs_torch.models.gaussian_map import AdamState, GaussianMap, GaussianParams
 from fourdgs_torch.slam.keyframes import KeyframeStore
+from fourdgs_torch.slam.mapping_dynamic import DeformAdam
 
 
 def _get(obj, name):
@@ -70,3 +77,50 @@ def pose_from_array(T, device) -> torch.Tensor:
 
 def pose_to_array(T: torch.Tensor) -> np.ndarray:
     return T.detach().cpu().numpy()
+
+
+def _mlp_from(obj, device) -> MLPParams:
+    seq = lambda name: tuple(_t(a, device) for a in _get(obj, name))  # noqa: E731
+    return MLPParams(weights=seq("weights"), biases=seq("biases"),
+                     **{name: seq(name) for name, _, _ in HEADS})
+
+
+def _mlp_to(mlp: MLPParams) -> dict:
+    seq = lambda ts: [t.detach().cpu().numpy() for t in ts]  # noqa: E731
+    return {f: seq(getattr(mlp, f)) for f in MLPParams._fields}
+
+
+def _floats_from(obj, device) -> ControlNodeFloats:
+    return ControlNodeFloats(*(_t(_get(obj, f), device) for f in ("nodes", "radius_raw",
+                                                                  "weight_raw")),
+                             mlp=_mlp_from(_get(obj, "mlp"), device))
+
+
+def _floats_to(f) -> dict:
+    out = {k: getattr(f, k).detach().cpu().numpy() for k in ("nodes", "radius_raw",
+                                                            "weight_raw")}
+    out["mlp"] = _mlp_to(f.mlp)
+    return out
+
+
+def control_nodes_from_arrays(obj, device) -> ControlNodes:
+    f = _floats_from(obj, device)
+    return ControlNodes(nodes=f.nodes, radius_raw=f.radius_raw, weight_raw=f.weight_raw,
+                        valid=_t(_get(obj, "valid"), device), mlp=f.mlp)
+
+
+def control_nodes_to_arrays(cn: ControlNodes) -> dict:
+    out = _floats_to(cn)
+    out["valid"] = cn.valid.cpu().numpy()
+    return out
+
+
+def deform_adam_from_arrays(obj, device) -> DeformAdam:
+    return DeformAdam(mu=_floats_from(_get(obj, "mu"), device),
+                      nu=_floats_from(_get(obj, "nu"), device),
+                      count=int(np.asarray(_get(obj, "count"))))
+
+
+def deform_adam_to_arrays(state: DeformAdam) -> dict:
+    return {"mu": _floats_to(state.mu), "nu": _floats_to(state.nu),
+            "count": np.asarray(state.count, np.int32)}

@@ -1,10 +1,12 @@
 """Synthetic RGB-D sequences rendered from a ground-truth Gaussian scene
-(port of fourdgs/data/synthetic.py, static scene).
+(port of fourdgs/data/synthetic.py without `write_tum_format`).
 
-A procedurally textured room built from Gaussians and an orbiting camera
-trajectory, drawn from numpy generators seeded from the config. Frames are
-rendered by the port's own rasterizer at the ground-truth poses, on the
-dataset's device, so SLAM on the output has a well-defined optimum.
+A procedurally textured room built from Gaussians, an orbiting camera
+trajectory and, with `dynamic`, a blob of Gaussians that moves over
+normalized time, with exact motion masks; all drawn from numpy generators
+seeded from the config. Frames are rendered by the port's own rasterizer
+at the ground-truth poses, on the dataset's device, so SLAM on the output
+has a well-defined optimum.
 """
 
 from __future__ import annotations
@@ -63,6 +65,30 @@ def make_room_scene(seed: int = 0, points_per_wall: int = 3000):
     return pts, col, np.log(scl), quats, opac
 
 
+def make_dynamic_blob(seed: int = 1, n: int = 400):
+    """A compact cluster of Gaussians that translates along x over
+    normalized time. Returns (means, colors, log-scales, quats,
+    opacities) numpy arrays."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(0, 0.12, (n, 3)).astype(np.float32) + np.array(
+        [0.0, 0.2, 2.5], np.float32
+    )
+    col = np.tile(np.array([[0.9, 0.15, 0.1]], np.float32), (n, 1))
+    col += rng.uniform(-0.05, 0.05, (n, 3)).astype(np.float32)
+    scl = np.log(np.full((n, 3), 0.05, np.float32))
+    quats = np.zeros((n, 4), np.float32)
+    quats[:, 0] = 1.0
+    opac = np.full(n, 0.95, np.float32)
+    return pts, col, scl, quats, opac
+
+
+def blob_offset(time: float) -> np.ndarray:
+    """Ground-truth trajectory of the dynamic blob (x sweep, slight bob)."""
+    return np.array(
+        [1.2 * (time - 0.5), 0.15 * np.sin(time * 6.28), 0.0], np.float32
+    )
+
+
 def orbit_pose(t: float, radius: float = 0.12) -> np.ndarray:
     """World-to-camera pose looking at the room center from a small orbit
     (~centimetres per frame, like handheld RGB-D footage)."""
@@ -80,26 +106,37 @@ def orbit_pose(t: float, radius: float = 0.12) -> np.ndarray:
 
 
 class SyntheticDataset(BaseDataset):
-    """config["Dataset"] extras: num_frames, seed, points_per_wall."""
+    """config["Dataset"] extras: num_frames, dynamic, seed,
+    points_per_wall."""
 
     def __init__(self, args, path: str, config, device: torch.device | str):
         super().__init__(args, path, config)
         ds = config["Dataset"]
-        if ds.get("dynamic", False):
-            raise ValueError("the dynamic synthetic sequence is not ported yet")
         self.device = torch.device(device)
         self.num_imgs = int(ds.get("num_frames", 60))
         seed = int(ds.get("seed", 0))
         ppw = int(ds.get("points_per_wall", 3000))
         self.static_scene = make_room_scene(seed, ppw)
+        self.blob = make_dynamic_blob(seed + 1) if ds.get("dynamic", False) else None
         self.poses = [orbit_pose(i / max(self.num_imgs - 1, 1)) for i in range(self.num_imgs)]
         self._proj = projection_matrix(self.fx, self.fy, self.cx, self.cy, self.width,
                                        self.height, device=self.device)
         self._cache: dict[int, tuple] = {}
 
+    def _time(self, idx: int) -> float:
+        return idx / max(self.num_imgs - 1, 1)
+
+    def _scene_at(self, idx: int):
+        """The static scene, and the blob at frame idx's time."""
+        if self.blob is None:
+            return self.static_scene
+        bpts = self.blob[0] + blob_offset(self._time(idx))[None]
+        return tuple(np.concatenate([a, b]) for a, b in
+                     zip(self.static_scene, (bpts,) + self.blob[1:]))
+
     def _render(self, idx: int):
         pts, col, lscl, quats, opac = (
-            torch.as_tensor(a, device=self.device) for a in self.static_scene
+            torch.as_tensor(a, device=self.device) for a in self._scene_at(idx)
         )
         with torch.no_grad():
             out = rasterize(
@@ -116,8 +153,26 @@ class SyntheticDataset(BaseDataset):
                             torch.zeros_like(out.depth))
         return image.cpu().numpy(), depth.cpu().numpy()
 
+    def motion_mask_gt(self, idx: int) -> np.ndarray:
+        """Exact motion mask (True = static): 8x8-pixel squares around the
+        projections of the blob's Gaussians."""
+        if self.blob is None:
+            return np.ones((self.height, self.width), bool)
+        bpts = self.blob[0] + blob_offset(self._time(idx))[None]
+        T = self.poses[idx]
+        pc = bpts @ T[:3, :3].T + T[:3, 3]
+        z = np.maximum(pc[:, 2], 1e-4)
+        u = (self.fx * pc[:, 0] / z + self.cx).astype(int)
+        v = (self.fy * pc[:, 1] / z + self.cy).astype(int)
+        mask = np.zeros((self.height, self.width), bool)
+        r = 4
+        for uu, vv in zip(u, v):
+            if 0 <= uu < self.width and 0 <= vv < self.height:
+                mask[max(0, vv - r):vv + r, max(0, uu - r):uu + r] = True
+        return ~mask
+
     def __getitem__(self, idx: int):
         if idx not in self._cache:
             self._cache[idx] = self._render(idx)
         image, depth = self._cache[idx]
-        return image, depth, self.poses[idx], np.ones((self.height, self.width), bool)
+        return image, depth, self.poses[idx], self.motion_mask_gt(idx)

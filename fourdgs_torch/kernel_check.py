@@ -13,7 +13,9 @@ the same way.
 
 `sample_map` and `compositor_inputs` give the inputs: the benchmark
 configuration's map after 100 initialisation iterations on frame 0 of the
-synthetic sequence, rendered at its ground-truth poses.
+synthetic sequence, rendered at its ground-truth poses; optionally with
+the last views carrying the signed flow payload of 4D mapping in their
+colour channels.
 """
 
 from __future__ import annotations
@@ -58,6 +60,17 @@ def bench_config(n_frames: int):
     })
 
 
+def bench_dynamic_config(n_frames: int):
+    """The configuration of `bench.py --dynamic`: the benchmark's, with the
+    moving blob, the deformation field from frame 8 on (512 control
+    nodes) and flow weights 3 and 2."""
+    cfg = bench_config(n_frames)
+    cfg["Dataset"]["dynamic"] = True
+    cfg["Training"].update(dystart=8, flow_loss=3, flow_loss_fine=2)
+    cfg["ModelHiddenParams"] = {"node_num": 512}
+    return cfg
+
+
 def sample_map():
     """A SLAM object whose map had 100 initialisation iterations on frame 0
     of the synthetic sequence, at the benchmark's widths, on the card;
@@ -74,17 +87,30 @@ def sample_map():
     return slam, frames
 
 
-def compositor_inputs(slam, n_views: int):
+def compositor_inputs(slam, n_views: int, n_flow: int = 0, seed: int = 0):
     """Field table, bins and grid of `n_views` views of the current map at
-    the sequence's ground-truth poses: the compositor's inputs."""
+    the sequence's ground-truth poses: the compositor's inputs. The last
+    `n_flow` views carry a flow view's payload in place of colour: signed
+    values in [-0.1, 0.1) in the first two channels and a 0/1 dynamic
+    flag (a quarter of the Gaussians) in the third."""
     from .ops.rasterize.api import screen_fields
     from .slam.mapping import _activated
 
     g = slam.gmap
-    poses = torch.stack([slam._pose_tensor(slam.dataset.poses[i]) for i in range(n_views)])
+    dev = slam.device
+    n_poses = len(slam.dataset.poses)
+    poses = torch.stack([slam._pose_tensor(slam.dataset.poses[i % n_poses])
+                         for i in range(n_views)])
+    xyz, scales, quats, opac, rgb = _activated(g.params)
+    colors = rgb.expand((n_views,) + rgb.shape).clone()
+    if n_flow:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        flow = torch.rand((n_flow, g.capacity, 2), generator=gen, device=dev) * 0.2 - 0.1
+        dy = (torch.rand((g.capacity,), generator=gen, device=dev) < 0.25).to(torch.float32)
+        colors[n_views - n_flow:] = torch.cat([flow, dy.expand(n_flow, -1)[..., None]], -1)
     with torch.no_grad():
         _, fields, bins, grid = screen_fields(
-            *_activated(g.params), g.alive, poses, slam.intr.proj(device=slam.device),
+            xyz, scales, quats, opac, colors, g.alive, poses, slam.intr.proj(device=dev),
             config=slam.raster, **slam.intr.raster_kw())
     return fields.contiguous(), bins, grid
 

@@ -1,13 +1,55 @@
-"""K-nearest-neighbour mean squared distance (port of `knn_mean_sq_dist`
-in fourdgs/ops/knn.py), the initial-scale rule of new Gaussians
-(distCUDA2 semantics). Distances are d^2 = |q|^2 + |r|^2 - 2 q.r over
-query chunks, so the inner product is one matmul per chunk."""
+"""K-nearest-neighbour ops (port of fourdgs/ops/knn.py).
+
+  - `knn_mean_sq_dist`: the initial-scale rule of new Gaussians (distCUDA2
+    semantics),
+  - `knn_indices` / `knn_weights`: the control-node blend of the 4D path,
+  - `farthest_point_sample`: control-node placement.
+
+Distances are d^2 = |q|^2 + |r|^2 - 2 q.r, one matmul per query chunk,
+clamped at 0, with invalid references pushed back by a large bias, as in
+the reference (`torch.cdist` rounds otherwise and picks other neighbours
+on near-ties). Neighbours come from a stable sort, so exact ties go to the
+lower index, as `lax.top_k` breaks them.
+"""
 
 from __future__ import annotations
 
 import torch
 
 _BIG = 1e10
+
+
+def _sq_norm(x: torch.Tensor) -> torch.Tensor:
+    return x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2]
+
+
+def _sq_dists(q: torch.Tensor, refs: torch.Tensor, r_sq: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """(..., nq, nr) d^2 = |q|^2 + |r|^2 - 2 q.r + bias (unclamped)."""
+    return (_sq_norm(q)[..., :, None] + r_sq[..., None, :]
+            - 2.0 * (q @ refs.transpose(-1, -2)) + bias[..., None, :])
+
+
+def _bias(r_sq: torch.Tensor, ref_valid: torch.Tensor | None) -> torch.Tensor:
+    if ref_valid is None:
+        return torch.zeros_like(r_sq)
+    return torch.where(ref_valid, torch.zeros_like(r_sq), torch.full_like(r_sq, _BIG))
+
+
+def knn_indices(queries: torch.Tensor, refs: torch.Tensor, k: int,
+                ref_valid: torch.Tensor | None = None,
+                chunk: int = 8192) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., Nq, 3) x (..., Nr, 3) -> (sq_dists (..., Nq, k), indices
+    (..., Nq, k) int64), nearest first. Leading axes batch."""
+    r_sq = _sq_norm(refs)
+    bias = _bias(r_sq, ref_valid)
+    d2s, idxs = [], []
+    for base in range(0, queries.shape[-2], chunk):
+        d2 = _sq_dists(queries[..., base:base + chunk, :], refs, r_sq, bias)
+        d2, idx = torch.sort(d2, dim=-1, stable=True)
+        d2s.append(d2[..., :k])
+        idxs.append(idx[..., :k])
+    return torch.clamp(torch.cat(d2s, dim=-2), min=0.0), torch.cat(idxs, dim=-2)
 
 
 def knn_mean_sq_dist(points: torch.Tensor, valid: torch.Tensor | None = None,
@@ -17,9 +59,7 @@ def knn_mean_sq_dist(points: torch.Tensor, valid: torch.Tensor | None = None,
     neighbours averages over zeros in place of the missing ones."""
     n = points.shape[0]
     r_sq = torch.sum(points * points, dim=-1)
-    bias = torch.zeros_like(r_sq) if valid is None else torch.where(
-        valid, torch.zeros_like(r_sq), torch.full_like(r_sq, _BIG)
-    )
+    bias = _bias(r_sq, valid)
     kk = min(k, n)
     out = []
     for base in range(0, n, chunk):
@@ -37,3 +77,33 @@ def knn_mean_sq_dist(points: torch.Tensor, valid: torch.Tensor | None = None,
     if valid is not None:
         mean = torch.where(valid, mean, torch.zeros_like(mean))
     return mean
+
+
+def knn_weights(queries: torch.Tensor, nodes: torch.Tensor, node_radius: torch.Tensor,
+                k: int = 3, node_valid: torch.Tensor | None = None,
+                eps: float = 1e-7) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gaussian-kernel KNN blend weights w_i = exp(-d_i^2 / (2 r_i^2)),
+    normalized over the k picks. Returns (weights (Nq, k), indices)."""
+    d2, idx = knn_indices(queries, nodes, k, ref_valid=node_valid)
+    r = node_radius[idx]
+    w = torch.exp(-d2 / (2.0 * torch.clamp(r * r, min=eps)))
+    w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=eps)
+    return w, idx
+
+
+def farthest_point_sample(points: torch.Tensor, valid: torch.Tensor, n_samples: int,
+                          start: torch.Tensor | int) -> torch.Tensor:
+    """Farthest-point sampling over the valid points, from index `start`
+    (a draw weighted by `valid`). Returns (n_samples,) int64 indices; an
+    invalid point is never picked after the start. The steps stay on the
+    device: no step reads a value back to the host."""
+    n = points.shape[0]
+    sel = torch.empty(n_samples, dtype=torch.long, device=points.device)
+    cur = torch.as_tensor(start, dtype=torch.long, device=points.device).reshape(())
+    min_d2 = torch.full((n,), float("inf"), dtype=points.dtype, device=points.device)
+    neg_inf = torch.full_like(min_d2, -float("inf"))
+    for s in range(n_samples):
+        sel[s] = cur
+        min_d2 = torch.minimum(min_d2, _sq_norm(points - points[cur]))
+        cur = torch.argmax(torch.where(valid, min_d2, neg_inf))
+    return sel

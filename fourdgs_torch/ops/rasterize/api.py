@@ -33,6 +33,25 @@ class RasterConfig(NamedTuple):
         return ((side - 1) * TILE) // 2
 
 
+def ndc_project(x: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+    """Points (..., N, 3) through full projections (..., 4, 4) (proj @ T_cw)
+    to NDC (..., N, 3): the flow payload's one projection."""
+    hom = x @ full[..., :3, :3].transpose(-1, -2) + full[..., None, :3, 3]
+    w = x @ full[..., 3:4, :3].transpose(-1, -2) + full[..., None, 3:4, 3]
+    return hom / (w + 1e-7)
+
+
+def flow_payload(x1: torch.Tensor, x2: torch.Tensor, full1: torch.Tensor,
+                 full2: torch.Tensor, dygs: torch.Tensor) -> torch.Tensor:
+    """The 3-channel payload a flow render composites: the NDC
+    displacement (du, dv) of each Gaussian from (x1, camera 1) to (x2,
+    camera 2), and its dynamic flag in the third channel. Signed values;
+    nothing downstream clamps a payload."""
+    f = ndc_project(x2, full2) - ndc_project(x1, full1)
+    dy = dygs.to(f.dtype)[:, None].expand(f.shape[:-1] + (1,))
+    return torch.cat([f[..., :2], dy], dim=-1)
+
+
 def _assemble_image(tiles: torch.Tensor, tx_n: int, ty_n: int, tile: int, w: int, h: int):
     """Channel-first (..., num_tiles, C, tile*tile) -> (..., C, H, W)."""
     lead = tiles.shape[:-3]
@@ -171,4 +190,26 @@ def rasterize(
     return out._replace(
         color=out.color[0], depth=out.depth[0], alpha=out.alpha[0],
         n_touched=out.n_touched[0], T_final=out.T_final[0], radii=out.radii[0],
+    )
+
+
+def render_flow(
+    means3d, scales, quats, opacities, dygs, alive,
+    d_xyz1, d_xyz2, d_rot1, d_scale1, T_cw1, T_cw2, proj, *,
+    fx: float, fy: float, width: int, height: int, tan_fovx: float,
+    tan_fovy: float, config: RasterConfig = RasterConfig(),
+) -> RenderOutputs:
+    """Render the scene flow from (time 1, camera 1) to (time 2, camera 2)
+    as a 3-channel image: NDC (du, dv) and the dygs flag, on a zero
+    background. `scales` and `quats` are activated; the deformations
+    d_* are (N, .) at the two times. The Gaussians' base parameters are
+    detached: only the deformations receive gradients."""
+    base = means3d.detach()
+    x1, x2 = base + d_xyz1, base + d_xyz2
+    payload = flow_payload(x1, x2, proj @ T_cw1, proj @ T_cw2, dygs)
+    return rasterize(
+        x1, scales.detach() + d_scale1, quats.detach() + d_rot1, opacities.detach(),
+        payload, alive, T_cw1, proj, torch.zeros(3, device=means3d.device),
+        fx=fx, fy=fy, width=width, height=height, tan_fovx=tan_fovx,
+        tan_fovy=tan_fovy, config=config,
     )

@@ -1,7 +1,9 @@
-"""The static SLAM losses (port of fourdgs/slam/losses.py).
+"""The SLAM losses (port of fourdgs/slam/losses.py without the
+monocular and refinement terms).
 
 Images are (3, H, W) in [0,1]; depths and opacity (H, W); `motion_mask`
-is True on static (usable) pixels.
+is True on static (usable) pixels. The mapping and flow losses also take
+a leading view axis and then return one loss per view.
 """
 
 from __future__ import annotations
@@ -49,9 +51,12 @@ def mapping_loss_rgbd(
     alpha: float = 0.95,
     rgb_boundary_threshold: float = 0.01,
     rm_dynamic: bool = False,
+    dynamic: bool = False,
 ) -> torch.Tensor:
     """L1 RGB + L1 depth mapping loss; batched over a leading view axis
-    when given (V, 3, H, W) images, returning per-view losses."""
+    when given (V, 3, H, W) images, returning per-view losses. With
+    `dynamic`, the per-pixel L1 counts twice on dynamic pixels
+    (~motion_mask); the 4D mapping sets it per iteration."""
     rgb_mask = torch.sum(gt_image, dim=-3) > rgb_boundary_threshold
     depth_mask = (gt_depth > 0.01) & (gt_depth < 10000.0)
     if motion_mask is not None and rm_dynamic:
@@ -59,8 +64,45 @@ def mapping_loss_rgbd(
         depth_mask = depth_mask & motion_mask
     l1_rgb = torch.abs((image - gt_image) * rgb_mask.to(image.dtype).unsqueeze(-3))
     l1_depth = torch.abs((depth - gt_depth) * depth_mask.to(depth.dtype))
+    if dynamic and motion_mask is not None:
+        w = torch.where(motion_mask, 1.0, 2.0).to(image.dtype)
+        l1_rgb = l1_rgb * w.unsqueeze(-3)
+        l1_depth = l1_depth * w
     return (alpha * torch.mean(l1_rgb, dim=(-3, -2, -1))
             + (1.0 - alpha) * torch.mean(l1_depth, dim=(-2, -1)))
+
+
+def network_loss_rgbd(
+    image: torch.Tensor,
+    depth: torch.Tensor,
+    opacity: torch.Tensor,
+    gt_image: torch.Tensor,
+    gt_depth: torch.Tensor,
+    motion_mask: torch.Tensor | None = None,
+    alpha: float = 0.9,
+    dynamic: bool = False,
+) -> torch.Tensor:
+    """The deformation warmup's loss: L1 RGB where opacity > 0.95, L1 depth
+    where also the depth is valid; with `dynamic`, dynamic pixels count
+    three times."""
+    rgb_mask = opacity > 0.95
+    l1_rgb = torch.abs((image - gt_image) * rgb_mask.to(image.dtype)[None])
+    depth_mask = (gt_depth > 0.01) & (opacity > 0.95)
+    l1_depth = torch.abs((depth - gt_depth) * depth_mask.to(depth.dtype))
+    if dynamic and motion_mask is not None:
+        w = torch.where(motion_mask, 1.0, 3.0).to(image.dtype)
+        l1_rgb = l1_rgb * w[None]
+        l1_depth = l1_depth * w
+    return alpha * torch.mean(l1_rgb) + (1.0 - alpha) * torch.mean(l1_depth)
+
+
+def masked_flow_l1(rendered_flow: torch.Tensor, target_flow: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """L1 between rendered and target flow (..., 2, H, W) on the masked
+    pixels (..., H, W), over twice the mask's size: one loss per view."""
+    m = mask.to(rendered_flow.dtype).unsqueeze(-3)
+    return (torch.sum(torch.abs((rendered_flow - target_flow) * m), dim=(-3, -2, -1))
+            / torch.clamp(torch.sum(m, dim=(-3, -2, -1)) * 2.0, min=1.0))
 
 
 def isotropic_loss(scaling: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""SLAM orchestrator, static RGB-D path (port of fourdgs/slam/runner.py).
+"""SLAM orchestrator, RGB-D (port of fourdgs/slam/runner.py).
 
 One host loop alternates tracking and keyframe mapping, as the reference
 does with `single_thread: True`:
@@ -10,6 +10,15 @@ does with `single_thread: True`:
            every `kf_interval` frames) -> on a keyframe: spawn Gaussians,
            window update, mapping chunks with the densify/reset cadence,
            pose resync.
+
+With `dynamic=True` (the 4D path) the frame `dystart` is always a
+keyframe; keyframes before it map 20 static iterations. At the first
+keyframe from `dystart` on, Gaussians spawn on its dynamic pixels
+(`dygs`), control nodes are sampled from them and the deformation MLP is
+warmed up on that keyframe; every later keyframe phase is one
+`map_chunk_dynamic` with flow losses against the closest earlier
+keyframe, followed by one densify check. Flow comes from the exact
+synthetic provider (RAFT is not ported).
 
 The port runs on the CUDA device unless `device="cpu"` is passed; with no
 device and no CUDA it raises. It has no fixed pair buffer, so the
@@ -29,9 +38,11 @@ import torch
 from fourdgs_torch.data.base import load_dataset
 from fourdgs_torch.data.prefetch import iter_frames
 from fourdgs_torch.device import resolve_device
+from fourdgs_torch.models import deform
 from fourdgs_torch.models import gaussian_map as gm
 from fourdgs_torch.ops.rasterize.api import RasterConfig
 from fourdgs_torch.slam import keyframes as kfs
+from fourdgs_torch.slam import mapping_dynamic as mdyn
 from fourdgs_torch.slam.cadence import mapping_cadence
 from fourdgs_torch.slam.camera import Frame, Intrinsics
 from fourdgs_torch.slam.losses import median_depth
@@ -43,14 +54,23 @@ from fourdgs_torch.slam.mapping import (
     window_visibility,
 )
 from fourdgs_torch.slam.tracking import TrackingConfig, track_frame
+from fourdgs_torch.utils.config import merge_hparams
 from fourdgs_torch.utils.draws import TorchDraws
 from fourdgs_torch.utils.logging import Log
+
+
+def _zero_phases() -> dict:
+    """Seconds per phase of `SLAM.run`, with the tracking and dynamic
+    mapping iteration counts."""
+    return {"track": 0.0, "kf_check": 0.0, "keyframe": 0.0, "track_iters": 0,
+            "dyn_mapping": 0.0, "dyn_iters": 0}
 
 
 class SLAM:
     def __init__(
         self,
         config,
+        dynamic: bool = False,
         max_frames: int | None = None,
         capacity: int = 1 << 14,
         max_capacity: int = 1 << 18,
@@ -60,6 +80,7 @@ class SLAM:
     ):
         self.device = resolve_device(device)
         self.config = config
+        self.dynamic = dynamic
         tr = config["Training"]
         if tr.get("monocular", False) or tr.get("rm_initdy", False):
             raise ValueError("the port runs the RGB-D path only (no monocular, no rm_initdy)")
@@ -85,6 +106,7 @@ class SLAM:
         self.tracking_itr_num = int(tr.get("tracking_itr_num", 100))
         self.kf_iters = int(tr.get("keyframe_mapping_iters", 200))
         self.edge_threshold = float(tr.get("edge_threshold", 1.1))
+        self.dystart = int(tr.get("dystart", 0))
         op = config.get("opt_params", {})
         self.densify_grad_threshold = float(op.get("densify_grad_threshold", 2e-4))
         ds = config["Dataset"]
@@ -94,6 +116,20 @@ class SLAM:
                                     device=self.device)
         n_frames = len(self.dataset)
         self.n_frames = n_frames if max_frames is None else min(n_frames, max_frames)
+
+        # 4D deformation state, made at the first keyframe from dystart on
+        self.hp = merge_hparams(config)
+        self.deform = None
+        self.deform_adam = None
+        self.deform_init = False
+        self.time_interval = 1.0 / max(self.n_frames, 1)
+        self.flow_weight = float(tr.get("flow_loss", 3))
+        self.flow_weight_fine = float(tr.get("flow_loss_fine", tr.get("flow_loss", 3)))
+        self.flow_cache = None
+        if dynamic:
+            from fourdgs_torch.perception.flow import FlowCache, SyntheticFlowProvider
+
+            self.flow_cache = FlowCache(SyntheticFlowProvider(self.dataset))
         self.max_capacity = max_capacity
         self.raster = RasterConfig()
         self.track_cfg = TrackingConfig(
@@ -138,6 +174,7 @@ class SLAM:
         self.max_pairs_seen = 0
         self.rng = np.random.default_rng(0)
         self.metrics: dict = {}
+        self._phase = _zero_phases()
 
     def _note_pairs(self, num_pairs: int, overflow: bool):
         self.max_pairs_seen = max(self.max_pairs_seen, int(num_pairs))
@@ -156,14 +193,17 @@ class SLAM:
             self._grow_to(min(self.max_capacity, cap * 2))
 
     # ------------------------------------------------------------------
-    def _spawn_gaussians(self, frame: Frame, T_cw: torch.Tensor, exposure, init: bool) -> int:
-        """Back-project the keyframe depth (invalid-RGB and dynamic pixels
-        zeroed) into new Gaussians."""
+    def _spawn_gaussians(self, frame: Frame, T_cw: torch.Tensor, exposure, init: bool,
+                         dygs: bool = False) -> int:
+        """Back-project the keyframe depth (invalid-RGB pixels zeroed, and
+        the dynamic pixels, or with `dygs` all but them) into new
+        Gaussians, flagged dynamic with `dygs`."""
         ds = self.config["Dataset"]
         downs = int(ds.get("pcd_downsample_init" if init else "pcd_downsample",
                            32 if init else 128))
         valid_rgb = torch.sum(frame.image, dim=0) > 0.01
-        depth = frame.depth * valid_rgb * frame.motion_mask
+        motion = ~frame.motion_mask if dygs else frame.motion_mask
+        depth = frame.depth * valid_rgb * motion
         cands = gm.candidates_from_rgbd(
             self.draws.uniform(depth.numel()), frame.image, depth, T_cw,
             self.intr.fx, self.intr.fy, self.intr.cx, self.intr.cy,
@@ -176,7 +216,8 @@ class SLAM:
         while (self.gmap.num_alive + n_new > 0.9 * self.gmap.capacity
                and self.gmap.capacity < self.max_capacity):
             self._grow_to(min(self.max_capacity, self.gmap.capacity * 2))
-        self.gmap, self.adam, n = gm.insert(self.gmap, self.adam, cands, kf_id=frame.uid)
+        self.gmap, self.adam, n = gm.insert(self.gmap, self.adam, cands, kf_id=frame.uid,
+                                            dygs=dygs)
         return n
 
     def _densify(self, min_opacity: float, extent: float, max_screen_size: float):
@@ -314,7 +355,12 @@ class SLAM:
                     self.gmap, self.adam, torch.any(vis, dim=0)
                 )
 
-        # occlusion-aware visibility of the window, n_obs, pose resync
+        self._resync_window(key_opt, count_obs=True)
+
+    def _resync_window(self, key_opt: list[int], count_obs: bool):
+        """After a mapping phase: the window's occlusion-aware visibility
+        (with `count_obs`, also each Gaussian's n_obs, as the static path
+        keeps it), and the mapped keyframes' poses and exposures read back."""
         vw = self.map_cfg.num_window_views
         in_window = self.window[:vw]
         vw_slots = np.zeros(vw, np.int64)
@@ -322,7 +368,8 @@ class SLAM:
         vw_slots[:len(in_window)] = [self.kf_slot[kf] for kf in in_window]
         vis = window_visibility(self.gmap, self.store, vw_slots, vw_valid, self.intr,
                                 self.map_cfg)
-        self.gmap = self.gmap._replace(n_obs=vis.sum(dim=0).to(torch.int32))
+        if count_obs:
+            self.gmap = self.gmap._replace(n_obs=vis.sum(dim=0).to(torch.int32))
         vis = vis.cpu().numpy()
         for i, kf in enumerate(in_window):
             self.occ_visibility[kf] = vis[i]
@@ -330,6 +377,82 @@ class SLAM:
             slot = self.kf_slot[kf]
             self.poses_est[kf] = self.store.T_cw[slot].cpu().numpy()
             self.exposures[kf] = self.store.exposure[slot].cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # the 4D path
+    def _init_deform(self, idx: int, frame: Frame) -> bool:
+        """Spawn dynamic Gaussians on the keyframe's dynamic pixels, sample
+        control nodes from them and warm the deformation MLP up on the
+        keyframe. False (and nothing made) when it has no dynamic pixel."""
+        n_dy = self._spawn_gaussians(frame, self._pose_tensor(self.poses_est[idx]),
+                                     self.exposures[idx], init=False, dygs=True)
+        if n_dy == 0:
+            Log("no dynamic object at dystart; deferring deform init")
+            return False
+        dy_mask = self.gmap.dygs & self.gmap.alive
+        node_cap = int(self.hp.node_num)
+        start = self.draws.fps_start(dy_mask)
+        ws, heads = self.draws.mlp_init(deform.mlp_dims(), [d for _, d, _ in deform.HEADS])
+        self.deform = deform.init_nodes(
+            node_cap, self.gmap.params.xyz, dy_mask,
+            min(node_cap, max(int(dy_mask.sum()), 8)), start, deform.init_mlp(ws, heads),
+        )
+        self.deform_adam = mdyn.init_deform_adam(self.deform)
+        self.draws.warmup()
+        self.gmap, self.adam, self.deform, self.deform_adam, loss = mdyn.warmup_network(
+            self.gmap, self.adam, self.deform, self.deform_adam, self.store,
+            self.kf_slot[idx], 100, self.intr, self.map_cfg,
+        )
+        self.deform_init = True
+        Log(f"Deform initialized at frame {idx}: {n_dy} dynamic gaussians, "
+            f"warmup loss {loss:.4f}", tag="Backend")
+        return True
+
+    def _flow_arrays(self, key_opt: list[int]):
+        """Per window view: the slot of the closest earlier keyframe (-1:
+        none) and the flows between the two, (Vw, 2, H, W) each."""
+        vw = self.map_cfg.num_window_views
+        h, w = self.intr.height, self.intr.width
+        pair_slots = np.full(vw, -1, np.int64)
+        fwd = np.zeros((vw, 2, h, w), np.float32)
+        bwd = np.zeros((vw, 2, h, w), np.float32)
+        if self.flow_cache is not None and self.flow_weight != 0.0:
+            for i, kf in enumerate(key_opt[:vw]):
+                earlier = [k for k in self.kf_indices if k < kf]
+                if not earlier:
+                    continue
+                closest = max(earlier)
+                fwd[i], bwd[i] = self.flow_cache.get(kf, closest)
+                pair_slots[i] = self.kf_slot[closest]
+        return (pair_slots, torch.as_tensor(fwd, device=self.device),
+                torch.as_tensor(bwd, device=self.device))
+
+    def _run_mapping_dynamic(self, total_iters: int, step_after: int):
+        """One dynamic mapping chunk over the window, then one densify
+        check, the window's visibility and the pose resync (n_obs is left
+        as it was, as the reference leaves it)."""
+        slots, valid, opt_pose, pool, pool_size, key_opt = self._window_arrays()
+        pair_slots, fwd, bwd = self._flow_arrays(key_opt)
+        nv = self.map_cfg.num_views
+        _pt = time.time()
+        res = mdyn.map_chunk_dynamic(
+            self.gmap, self.adam, self.store, self.deform, self.deform_adam,
+            slots, valid, opt_pose, pair_slots, fwd, bwd, pool, pool_size,
+            init_pose_adam(self.map_cfg.num_window_views, self.device),
+            self.draws.dynamic_chunk(total_iters, pool_size, nv),
+            total_iters, step_after, self.iteration_count, self.intr, self.map_cfg,
+            flow_weight=self.flow_weight, flow_weight_fine=self.flow_weight_fine,
+            time_interval=self.time_interval,
+        )
+        self._phase["dyn_mapping"] += time.time() - _pt
+        self._phase["dyn_iters"] += total_iters
+        self._note_pairs(res.num_pairs, res.overflow)
+        self.gmap, self.adam, self.store = res.gmap, res.adam, res.store
+        self.deform, self.deform_adam = res.deform, res.deform_adam
+        self.iteration_count += max(0, total_iters - max(step_after, 0))
+        if (self.iteration_count % self.gaussian_update_every) < total_iters:
+            self._densify(self.gaussian_th, self.gaussian_extent, self.size_threshold)
+        self._resync_window(key_opt, count_obs=False)
 
     def _handle_keyframe(self, idx: int, frame: Frame, curr_visibility: np.ndarray):
         slot = self._assign_kf_slot(idx)
@@ -341,15 +464,24 @@ class SLAM:
         )
         self._spawn_gaussians(frame, self._pose_tensor(self.poses_est[idx]),
                               self.exposures[idx], init=False)
+        if self.dynamic and not self.deform_init and idx >= self.dystart:
+            self._init_deform(idx, frame)
         # map parameters step only after the first 100 of a long phase
-        step_after = 100 if self.kf_iters > 100 else -1
-        self._run_mapping(self.kf_iters, step_after)
+        iters = self.kf_iters
+        step_after = 100 if iters > 100 else -1
+        if self.dynamic and not self.deform_init and idx < self.dystart:
+            # before dystart, the 4D path maps a short static phase
+            iters, step_after = 20, -1
+        if self.dynamic and self.deform_init:
+            self._run_mapping_dynamic(iters, step_after)
+        else:
+            self._run_mapping(iters, step_after)
 
     def run(self) -> dict:
         """Process the sequence; returns frames/s, the map size and the
         seconds spent per phase."""
         t0 = time.time()
-        self._phase = {"track": 0.0, "kf_check": 0.0, "keyframe": 0.0, "track_iters": 0}
+        self._phase = _zero_phases()
         last_kf = 0
         for idx, frame in iter_frames(self.dataset, self.edge_threshold, self.n_frames,
                                       device=self.device):
@@ -372,7 +504,9 @@ class SLAM:
             self._phase["track_iters"] += res.n_iters
 
             check_time = (idx - last_kf) >= self.kf_interval
-            if not check_time:
+            # the 4D path makes the dystart frame a keyframe
+            force_dystart = self.dynamic and idx == self.dystart
+            if not (check_time or force_dystart):
                 continue
             _pt = time.time()
             curr_visibility, _ = self._visibility_at(res.T_cw)
@@ -387,7 +521,7 @@ class SLAM:
                     curr_visibility, last_vis, self.kf_translation,
                     self.kf_min_translation, self.kf_overlap,
                 )
-            create_kf = create_kf or (idx - last_kf) >= 5
+            create_kf = (check_time and (create_kf or (idx - last_kf) >= 5)) or force_dystart
             self._phase["kf_check"] += time.time() - _pt
 
             if create_kf:
@@ -426,9 +560,17 @@ class SLAM:
         from fourdgs_torch.eval.rendering import eval_rendering
 
         def render_at(idx):
-            out = render_keyframe(self.gmap, self._pose_tensor(self.poses_est[idx]),
-                                  self.intr, self.map_cfg)
+            T = self._pose_tensor(self.poses_est[idx])
+            if self.dynamic and self.deform_init:
+                # each frame at the time its keyframes carry
+                t = torch.tensor(idx / max(len(self.dataset) - 1, 1), device=self.device)
+                with torch.no_grad():
+                    out, _ = mdyn._deformed_render(self.gmap, self.deform, T, t,
+                                                   self.intr.proj(device=self.device),
+                                                   self.intr, self.map_cfg)
+            else:
+                out = render_keyframe(self.gmap, T, self.intr, self.map_cfg)
             return out.color, out.depth
 
         return eval_rendering(render_at, self.dataset, sorted(self.poses_est),
-                              mask_dynamic=True, interval=interval or 1)
+                              mask_dynamic=not self.dynamic, interval=interval or 1)

@@ -39,9 +39,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _fields(dev, views, seed=0, n=300):
+def _fields(dev, views, seed=0, n=300, n_flow=0):
     """Field table and bins of `views` views of a random scene with dense
-    overlap in the middle (pixels there terminate at T < 1e-4)."""
+    overlap in the middle (pixels there terminate at T < 1e-4). The last
+    `n_flow` views carry 4D mapping's flow payload in their colour
+    channels: signed values and a 0/1 dynamic flag."""
     rng = np.random.default_rng(seed)
     means = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1.1, 1.1, n),
                       rng.uniform(2.0, 6.0, n)], -1)
@@ -50,7 +52,10 @@ def _fields(dev, views, seed=0, n=300):
     quats = rng.normal(size=(n, 4))
     opac = rng.uniform(0.2, 1.0, n)
     opac[:5] = 1.0                      # alpha clamps at 0.99
-    colors = rng.uniform(0, 1, (n, 3))
+    colors = np.repeat(rng.uniform(0, 1, (1, n, 3)), views, 0)
+    if n_flow:
+        colors[views - n_flow:, :, :2] = rng.uniform(-0.1, 0.1, (n_flow, n, 2))
+        colors[views - n_flow:, :, 2] = rng.uniform(size=n) < 0.25
     alive = rng.uniform(size=n) > 0.05
     taus = rng.normal(0, 0.03, (views, 6))
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
@@ -101,6 +106,15 @@ def test_kernels_match_plain_versions(cuda, views):
     fields, bins, grid = _fields(cuda, views)
     ref = _check(fields, bins, grid, seed=views)
     assert (ref.out[:, 4] < 1e-3).any()          # some pixels terminate
+    assert (ref.dfields.abs().amax(dim=(0, 1)) > 0).all()
+
+
+def test_kernels_match_plain_versions_with_flow_payloads(cuda):
+    # the full 4D mapping window: 10 RGB views and 16 flow views
+    fields, bins, grid = _fields(cuda, 26, seed=26, n_flow=16)
+    assert float(fields[10:, :, 7:9].min()) < 0 < float(fields[10:, :, 7:9].max())
+    ref = _check(fields, bins, grid, seed=26)
+    assert float(ref.out[10 * grid.tiles:, :2].min()) < 0     # signed composites
     assert (ref.dfields.abs().amax(dim=(0, 1)) > 0).all()
 
 

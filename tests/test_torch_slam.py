@@ -9,6 +9,7 @@ its Pallas kernels in interpret mode, so both sides bin and composite
 alike. Poses agree within 1e-3 m."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -44,15 +45,76 @@ class JaxDraws:
 
     def replay_picks(self, num_iters, pool_size):
         # map_chunk's replay picks (fourdgs/slam/mapping.py:331-333)
-        key = self._next_key()
-        size = max(pool_size, 1)
-        picks = np.zeros((num_iters, 2), np.int64)
-        for i in range(num_iters):
-            ki = jax.random.fold_in(key, i)
-            picks[i, 0] = int(jax.random.randint(ki, (), 0, size))
-            picks[i, 1] = int(jax.random.randint(jax.random.fold_in(ki, 1), (), 0,
-                                                 max(size - 1, 1)))
-        return picks
+        return jax_picks(self._next_key(), num_iters, pool_size)
+
+    def fps_start(self, valid):
+        # init_nodes splits its key (fourdgs/models/deform.py:144): the FPS
+        # start from the first half (fourdgs/ops/knn.py:123), the MLP from
+        # the second, which mlp_init takes next
+        k1, self._mlp_key = jax.random.split(self._next_key())
+        vf = jnp.asarray(valid.cpu().numpy(), jnp.float32)
+        start = jax.random.choice(k1, vf.shape[0], p=vf / jnp.maximum(jnp.sum(vf), 1.0))
+        return torch.tensor(int(start))
+
+    def mlp_init(self, dims, head_dims):
+        # fourdgs/models/deform.py:102-130
+        keys = jax.random.split(self._mlp_key, len(dims) + 3)
+        ws = [torch.tensor(np.asarray(jax.random.uniform(
+            keys[i], (d_in, d_out), minval=-jnp.sqrt(6.0 / d_in),
+            maxval=jnp.sqrt(6.0 / d_in)))) for i, (d_in, d_out) in enumerate(dims)]
+        width = dims[-1][1]
+        heads = [torch.tensor(np.asarray(jax.random.normal(k, (width, d))))
+                 for k, d in zip(keys[-3:], head_dims)]
+        return ws, heads
+
+    def warmup(self):
+        # warmup_network takes a key and draws nothing from it
+        self._next_key()
+
+    def dynamic_chunk(self, num_iters, pool_size, num_views):
+        return jax_dynamic_draws(self._next_key(), num_iters, pool_size, num_views)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's tests on one torch thread. Their tensors are small,
+    where one thread is about as fast as many, and the other test workers
+    keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def jax_picks(key, num_iters, pool_size):
+    """The replay picks map_chunk and map_chunk_dynamic draw from `key`."""
+    size = max(pool_size, 1)
+    ki = jax.vmap(lambda i: jax.random.fold_in(key, i))(jnp.arange(num_iters))
+    r1 = jax.vmap(lambda k: jax.random.randint(k, (), 0, size))(ki)
+    r2 = jax.vmap(lambda k: jax.random.randint(jax.random.fold_in(k, 1), (), 0,
+                                               max(size - 1, 1)))(ki)
+    return np.stack([np.asarray(r1), np.asarray(r2)], 1).astype(np.int64)
+
+
+def jax_dynamic_draws(key, num_iters, pool_size, num_views):
+    """What map_chunk_dynamic draws from `key` (fourdgs/slam/mapping_dynamic.py
+    :339-343, :390-398 into fourdgs/models/deform.py:291-293, :322-324): the
+    replay picks, and per iteration and view ARAP's (jitter, 2 samples) and
+    the elastic term's (jitter, 8 samples)."""
+
+    def one(i, v):
+        kv = jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(key, i), 100), v)
+        out = []
+        for k, n in ((kv, 2), (jax.random.fold_in(kv, 1), 8)):
+            k1, k2 = jax.random.split(k)
+            out.append(jnp.concatenate([jax.random.uniform(k1, ())[None],
+                                        jax.random.uniform(k2, (n,))]))
+        return out
+
+    arap, elastic = jax.vmap(lambda i: jax.vmap(lambda v: one(i, v))(
+        jnp.arange(num_views)))(jnp.arange(num_iters))
+    return (jax_picks(key, num_iters, pool_size), torch.tensor(np.asarray(arap)),
+            torch.tensor(np.asarray(elastic)))
 
 
 def _config(num_frames, w, h, fx, **training):
