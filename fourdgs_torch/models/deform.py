@@ -217,12 +217,12 @@ def nn_weights(cn: ControlNodes, x: torch.Tensor, k: int = 3):
 
 
 def warp(cn: ControlNodes, x: torch.Tensor, t, k: int = 3,
-         motion_mask: torch.Tensor | None = None, knn=None):
+         motion_mask: torch.Tensor | None = None):
     """Deform points x (N, 3) at time t (a scalar, or (T,) for a batch of
     times): blended (d_xyz, d_rotation residual, d_scaling), each (N, .) or
-    (T, N, .). `knn` reuses a `knn_nodes(cn, x, k)` result."""
-    d2, idx = knn if knn is not None else knn_nodes(cn, x, k)
-    return blend_deform(node_deform(cn, t), blend_weights(cn, d2, idx), idx, motion_mask)
+    (T, N, .)."""
+    w, idx = nn_weights(cn, x, k)
+    return blend_deform(node_deform(cn, t), w, idx, motion_mask)
 
 
 def blend_deform(nd, w: torch.Tensor, idx: torch.Tensor,

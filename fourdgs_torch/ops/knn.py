@@ -2,7 +2,8 @@
 
   - `knn_mean_sq_dist`: the initial-scale rule of new Gaussians (distCUDA2
     semantics),
-  - `knn_indices` / `knn_weights`: the control-node blend of the 4D path,
+  - `knn_indices`: the control-node neighbours of the 4D path (its blend
+    weights are `models/deform.py` `blend_weights`),
   - `farthest_point_sample`: control-node placement.
 
 Distances are d^2 = |q|^2 + |r|^2 - 2 q.r, one matmul per query chunk,
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 _BIG = 1e10
+CHUNK = 8192   # queries per distance matrix in knn_indices
 
 
 def _sq_norm(x: torch.Tensor) -> torch.Tensor:
@@ -37,15 +39,14 @@ def _bias(r_sq: torch.Tensor, ref_valid: torch.Tensor | None) -> torch.Tensor:
 
 
 def knn_indices(queries: torch.Tensor, refs: torch.Tensor, k: int,
-                ref_valid: torch.Tensor | None = None,
-                chunk: int = 8192) -> tuple[torch.Tensor, torch.Tensor]:
+                ref_valid: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., Nq, 3) x (..., Nr, 3) -> (sq_dists (..., Nq, k), indices
     (..., Nq, k) int64), nearest first. Leading axes batch."""
     r_sq = _sq_norm(refs)
     bias = _bias(r_sq, ref_valid)
     d2s, idxs = [], []
-    for base in range(0, queries.shape[-2], chunk):
-        d2 = _sq_dists(queries[..., base:base + chunk, :], refs, r_sq, bias)
+    for base in range(0, queries.shape[-2], CHUNK):
+        d2 = _sq_dists(queries[..., base:base + CHUNK, :], refs, r_sq, bias)
         d2, idx = torch.sort(d2, dim=-1, stable=True)
         d2s.append(d2[..., :k])
         idxs.append(idx[..., :k])
@@ -77,18 +78,6 @@ def knn_mean_sq_dist(points: torch.Tensor, valid: torch.Tensor | None = None,
     if valid is not None:
         mean = torch.where(valid, mean, torch.zeros_like(mean))
     return mean
-
-
-def knn_weights(queries: torch.Tensor, nodes: torch.Tensor, node_radius: torch.Tensor,
-                k: int = 3, node_valid: torch.Tensor | None = None,
-                eps: float = 1e-7) -> tuple[torch.Tensor, torch.Tensor]:
-    """Gaussian-kernel KNN blend weights w_i = exp(-d_i^2 / (2 r_i^2)),
-    normalized over the k picks. Returns (weights (Nq, k), indices)."""
-    d2, idx = knn_indices(queries, nodes, k, ref_valid=node_valid)
-    r = node_radius[idx]
-    w = torch.exp(-d2 / (2.0 * torch.clamp(r * r, min=eps)))
-    w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=eps)
-    return w, idx
 
 
 def farthest_point_sample(points: torch.Tensor, valid: torch.Tensor, n_samples: int,

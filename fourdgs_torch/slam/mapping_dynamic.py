@@ -11,7 +11,8 @@ Extends the static `map_chunk` with the deformation field:
     an L1 to the precomputed optical flow on dynamic pixels, weighted by
     `flow_weight` in the first half of the chunk and `flow_weight_fine` in
     the second (`phase_weights`), where the dynamic pixels of the mapping
-    loss also count twice,
+    loss also count twice; the payload is projected through a constant
+    view camera (`_payload_camera`, a departure from the reference),
   - ARAP and elastic regularizers of the field at each main view's time,
     1e-3 on window views and 1e-4 on replay views,
   - an Adam of its own for the field (lr 8e-4, eps 1e-15).
@@ -107,15 +108,28 @@ def phase_weights(i: int, num_iters: int, flow_weight: float,
 
 
 def _deformed_render(gmap: GaussianMap, cn: D.ControlNodes, T_cw, t, proj,
-                     intr: Intrinsics, cfg: MappingConfig, mean2d_offset=None):
+                     intr: Intrinsics, cfg: MappingConfig):
     """One render of the map with its dynamic Gaussians deformed to time
     t. Returns (outputs, (d_xyz, d_rot, d_scale))."""
     d = D.warp(cn, gmap.params.xyz.detach(), t, motion_mask=gmap.dygs)
     xyz, scales, quats, opac, rgb = _activated(gmap.params)
     out = rasterize(xyz + d[0], scales + d[2], quats + d[1], opac, rgb, gmap.alive, T_cw,
-                    proj, torch.zeros(3, device=xyz.device), mean2d_offset=mean2d_offset,
-                    config=cfg.raster, **intr.raster_kw())
+                    proj, torch.zeros(3, device=xyz.device), config=cfg.raster,
+                    **intr.raster_kw())
     return out, d
+
+
+def _payload_camera(T_view: torch.Tensor) -> torch.Tensor:
+    """The view cameras the flow payloads are projected through, held
+    constant: the flow loss reaches a window view's pose only through where
+    its flow render's splats land. The reference also differentiates the
+    payload, ndc(x2, P T_pair) - ndc(x1, P T_view), with respect to the
+    pose (fourdgs/slam/mapping_dynamic.py:279-281). Where the field does
+    not yet carry the blob's motion, that path lowers the flow loss by
+    moving the camera: on the `bench.py --dynamic` run it pulled the
+    window's keyframes 25-90 mm off in two 4D phases, against 5-9 mm
+    without it (dynamic_runs.py; ROADMAP, faults against the reference)."""
+    return T_view.detach()
 
 
 def _dyn_view_geometry(params, deform, dygs: torch.Tensor, store: KeyframeStore,
@@ -126,8 +140,8 @@ def _dyn_view_geometry(params, deform, dygs: torch.Tensor, store: KeyframeStore,
     camera]. `deform` = (d_xyz, d_rot, d_scale), each (nm + nf, N, .): the
     warp at the main views' times, then at the pairs' times; flow view j
     belongs to main view flow_main[j]. Main views carry the live map plus
-    the deformation; flow views detach the map (only the deformation and
-    the view's pose get gradients)."""
+    the deformation; flow views detach the map (only the deformation and,
+    through the splats' positions, the view's pose get gradients)."""
     d_xyz, d_rot, d_scale = deform
     xyz, scales, quats, opac, rgb = _activated(params)
     nm, n = main_slots.shape[0], xyz.shape[0]
@@ -136,7 +150,7 @@ def _dyn_view_geometry(params, deform, dygs: torch.Tensor, store: KeyframeStore,
     T_view = T_main[flow_main]
     x1 = xyz.detach() + d_xyz[flow_main]
     x2 = xyz.detach() + d_xyz[nm:]
-    flow12 = flow_payload(x1, x2, proj @ T_view, proj @ T_pair, dygs)
+    flow12 = flow_payload(x1, x2, proj @ _payload_camera(T_view), proj @ T_pair, dygs)
     payload21 = torch.cat([-flow12[..., :2], flow12[..., 2:]], dim=-1)
     nf = flow12.shape[0]
     means = torch.cat([xyz + d_xyz[:nm], x1, x2])

@@ -404,6 +404,7 @@ class SLAM:
             self.kf_slot[idx], 100, self.intr, self.map_cfg,
         )
         self.deform_init = True
+        self.metrics["dygs_spawned"] = n_dy
         Log(f"Deform initialized at frame {idx}: {n_dy} dynamic gaussians, "
             f"warmup loss {loss:.4f}", tag="Backend")
         return True
@@ -431,6 +432,14 @@ class SLAM:
         """One dynamic mapping chunk over the window, then one densify
         check, the window's visibility and the pose resync (n_obs is left
         as it was, as the reference leaves it)."""
+        key_opt = self._map_dynamic(total_iters, step_after)
+        if (self.iteration_count % self.gaussian_update_every) < total_iters:
+            self._densify(self.gaussian_th, self.gaussian_extent, self.size_threshold)
+        self._resync_window(key_opt, count_obs=False)
+
+    def _map_dynamic(self, total_iters: int, step_after: int) -> list[int]:
+        """The `map_chunk_dynamic` of a keyframe phase over the window;
+        returns the mapped keyframes (key_opt)."""
         slots, valid, opt_pose, pool, pool_size, key_opt = self._window_arrays()
         pair_slots, fwd, bwd = self._flow_arrays(key_opt)
         nv = self.map_cfg.num_views
@@ -450,9 +459,7 @@ class SLAM:
         self.gmap, self.adam, self.store = res.gmap, res.adam, res.store
         self.deform, self.deform_adam = res.deform, res.deform_adam
         self.iteration_count += max(0, total_iters - max(step_after, 0))
-        if (self.iteration_count % self.gaussian_update_every) < total_iters:
-            self._densify(self.gaussian_th, self.gaussian_extent, self.size_threshold)
-        self._resync_window(key_opt, count_obs=False)
+        return key_opt
 
     def _handle_keyframe(self, idx: int, frame: Frame, curr_visibility: np.ndarray):
         slot = self._assign_kf_slot(idx)

@@ -6,7 +6,11 @@ deformation warmup, and `map_chunk_dynamic` at 64x48 with 3 window views
 
 The JAX side renders through its Pallas kernels in interpret mode, so both
 sides bin alike (window and flow views every 4 iterations, replay views
-every iteration).
+every iteration). It projects its flow payloads through constant view
+cameras, as the port does (`_payload_camera`, the port's one departure
+here): its own code, with `ndc_project`'s projection held constant;
+`test_map_chunk_dynamic_departs_only_through_the_payload_camera` holds
+the port against the reference as it is.
 
 Tolerances. One iteration is held tightly (loss 1e-5, gradients within
 1e-4). Over several, both Adams amplify rounding: at eps
@@ -17,6 +21,8 @@ field feeds the map (tests/test_parallel.py meets the same between two
 JAX runs; `test_warmup_diverges_in_the_reference_itself` shows it
 within JAX alone). So the multi-step tests bound the share of elements
 that drift, and their drift by Adam's step bound."""
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -172,10 +178,27 @@ def test_warmup_diverges_in_the_reference_itself():
     assert op_jax > 0.1 and op_port < 10 * op_jax, (op_jax, op_port)
 
 
-def _chunk(step_after, pool, iters):
+def _constant_payload_camera(fn):
+    """A copy of the reference's `fn` whose `ndc_project` holds its
+    projection constant: its flow payloads then reach no camera's pose.
+    A new function object, so that jit traces it apart from `fn`."""
+    g = dict(fn.__globals__,
+             ndc_project=lambda x, full: jmd.ndc_project(x, jax.lax.stop_gradient(full)))
+    out = types.FunctionType(fn.__code__, g, fn.__name__, fn.__defaults__, fn.__closure__)
+    out.__kwdefaults__ = fn.__kwdefaults__
+    return out
+
+
+_jax_chunk_constant_payload_camera = jax.jit(
+    _constant_payload_camera(jmd.map_chunk_dynamic.__wrapped__),
+    static_argnames=("intr", "cfg", "flow_weight", "flow_weight_fine", "time_interval", "mesh"))
+
+
+def _chunk(step_after, pool, iters, reference_as_is=False):
     """One JAX and one port `map_chunk_dynamic` from the same state with the
     same draws: 3 window views (the third invalid), flow pairs for the
-    first two, replay from `pool`."""
+    first two, replay from `pool`; the JAX side with constant payload
+    cameras unless `reference_as_is`."""
     gmap, adam, store, cn = _dyn_state()
     dadam = jmd.init_deform_adam(cn)
     slots = np.array([1, 2, 0], np.int32)
@@ -191,7 +214,8 @@ def _chunk(step_after, pool, iters):
     key = jax.random.key(3)
     jcfg = jm.MappingConfig(num_window_views=3, num_random_views=2, alpha=0.9, raster=J_RASTER)
     kw = dict(flow_weight=3.0, flow_weight_fine=2.0, time_interval=1 / 8)
-    jres = jmd.map_chunk_dynamic(
+    j_chunk = jmd.map_chunk_dynamic if reference_as_is else _jax_chunk_constant_payload_camera
+    jres = j_chunk(
         gmap, adam, store, cn, dadam, jnp.asarray(slots), jnp.asarray(valid),
         jnp.asarray(opt_pose), jnp.asarray(pair_slots), jnp.asarray(fwd), jnp.asarray(bwd),
         jnp.asarray(pool_arr), jnp.int32(len(pool)), jm.init_pose_adam(3), key,
@@ -261,3 +285,21 @@ def test_map_chunk_dynamic_matches_jax(step_after, pool):
     # the field learned something: its heads moved by several learning rates
     moved = np.abs(np.asarray(jres.deform.mlp.head_warp[0]) - np.asarray(cn.mlp.head_warp[0]))
     assert moved.max() > 3 * tmd.DEFORM_LR
+
+
+def test_map_chunk_dynamic_departs_only_through_the_payload_camera():
+    """Against the reference as it is, one iteration: the loss, the map's
+    and the field's gradients and the poses of the views it does not
+    optimize agree as in the first-step test; the optimized view (slot 1,
+    with a flow pair) steps otherwise, since the reference's pose gradient
+    also runs through its flow payload."""
+    tres, jres, tst, _ = _chunk(-1, [3, 0], 1, reference_as_is=True)
+    np.testing.assert_allclose(tres.final_loss, float(jres.final_loss), rtol=1e-5)
+    tmu = convert.adam_to_arrays(tres.adam)["mu"]
+    for name in ("xyz", "f_dc", "scaling", "rotation", "opacity"):
+        b = np.asarray(getattr(jres.adam.mu, name))
+        np.testing.assert_allclose(tmu[name], b, atol=1e-4 * np.abs(b).max(), err_msg=name)
+    want = np.asarray(jres.store.T_cw)
+    others = [s for s in range(want.shape[0]) if s != 1]
+    np.testing.assert_allclose(tst["T_cw"][others], want[others], atol=1e-6)
+    assert np.abs(tst["T_cw"][1] - want[1]).max() > 1e-4

@@ -12,7 +12,9 @@ cameras are held within 5e-3 m and the learned field not at all: the
 deformation warmup's 100 Adam steps at eps 1e-15 are chaotic in the
 reference itself (tests/test_torch_mapping_dynamic.py
 `test_warmup_diverges_in_the_reference_itself`), so the two fields part
-after some tens of steps whatever the port does."""
+after some tens of steps whatever the port does; and the port's flow
+payloads reach no camera's pose, where the reference's do
+(fourdgs_torch/slam/mapping_dynamic.py `_payload_camera`)."""
 
 import jax.numpy as jnp
 import numpy as np
