@@ -12,7 +12,7 @@ Phases, one line each, in order (any failure exits non-zero):
               static phase's mapping, the full static window), 26 (the
               full 4D window: 10 views of RGB and 16 whose colour channels
               carry signed flow payloads), and the numbers the dynamic
-              phase launches (fourdgs_torch/kernel_check.py: forward
+              and cli phases launch (fourdgs_torch/kernel_check.py: forward
               outputs, n_contrib and n_touched exactly equal, gradients
               within 1e-5 of each field's largest magnitude); with times
               and bounds
@@ -28,11 +28,26 @@ Phases, one line each, in order (any failure exits non-zero):
               frame's camera-centre error, the window's before and after
               each 4D keyframe phase, the seconds per phase, ms per
               dynamic mapping iteration and a device profile of one
-  7. kernels  one JSON line: per kernel its launches in the SLAM phase and
-              in the dynamic phase (in all and by number of views), largest
-              error against its plain version, times and bound at 10 views
-              (the full static window), and (*_1view, *_2view, *_26view)
-              at 1, 2 and 26 views
+  7. cli      the command line, fourdgs_torch.cli.main(... --eval --dynamic
+              --interval 5), on a 44-frame 640x480 dynamic synthetic
+              sequence written in TUM layout to a temporary directory,
+              with a config inheriting configs/rgbd/tum/base_config.yaml
+              (only the sequence, its calibration and dystart 8 set):
+              TUM loader, motion segmenter, 4D SLAM (no flow loss: RAFT
+              is not ported), ATE, evaluation, 1500 refinement iterations
+              at 10 views (44 frames make the 10 keyframes that need),
+              evaluation, artifacts, a checkpoint resumed with --resume;
+              held to ATE < 0.08 m, PSNR after refinement > 14 dB and not
+              below before, the artifact tree, pixels segmented dynamic,
+              the resumed map equal to the checkpointed one, and every
+              refinement iteration at 10 views; with the seconds per stage
+              and the launches by number of views per stage
+  8. kernels  one JSON line: per kernel its launches in the SLAM phase, in
+              the dynamic phase and in the cli phase (in all, by number of
+              views, and the cli phase's refinement by number of views),
+              largest error against its plain version, times and bound at
+              10 views (the full static window), and (*_1view, *_2view,
+              *_26view) at 1, 2 and 26 views
 then the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -41,20 +56,26 @@ repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # numbers of views held in phase 3: tracking and initialisation (1), the
 # static phase's mapping (2), the full static window (10), the full 4D
-# window (26), and what the dynamic phase launches besides: its window
+# window (26), what the dynamic phase launches besides: its window
 # visibility (3, 4), its first dynamic keyframe (7 = 3 views and 2 flow
-# pairs) and its second (10 = 4 and 3)
-VIEWS = (1, 2, 3, 4, 7, 10, 26)
+# pairs) and its second (10 = 4 and 3), and what the cli phase's window
+# launches as it grows to 8 keyframes and 2 replay views (3 to 10, without
+# flow views); its refinement launches 10
+VIEWS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 26)
 FLOW_VIEWS = {7: 4, 26: 16}   # of those views, how many carry flow payloads
+CLI_FRAMES = 44   # keyframes 0, 5, 8 (dystart), 13, ..., 43: ten, for refinement at 10 views
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_OPS_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # per (pixel, pair) operation counts of the kernels' arithmetic
@@ -247,6 +268,162 @@ def trace_dynamic_phases(slam) -> list:
     return phases
 
 
+@contextlib.contextmanager
+def observe_stages(slam_cls, wrappers):
+    """While open: the SLAM instances made (`seen["slams"]`), and per stage
+    of the command line (`run`, `eval_ate`, `eval_rendering` by label,
+    `color_refinement`) its seconds, synchronised, and the launches by
+    number of views of each kernel wrapper during it."""
+    import torch
+
+    seen = {"slams": [], "stages": {}}
+    names = ("run", "eval_ate", "eval_rendering", "color_refinement")
+    originals = {name: getattr(slam_cls, name) for name in names}
+    original_init = slam_cls.__init__
+
+    def init(self, *a, **k):
+        original_init(self, *a, **k)
+        seen["slams"].append(self)
+
+    def staged(name, fn):
+        def stage(self, *a, **k):
+            before = {w: dict(k_.launches_by_views) for w, k_ in wrappers.items()}
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            label = a[0] if a and isinstance(a[0], str) else k.get("label")
+            key = f"{name}_{label}" if name.startswith("eval") else name
+            seen["stages"][key] = {"s": time.time() - t, "launches_by_views": {
+                w: {v: n - before[w].get(v, 0) for v, n in k_.launches_by_views.items()
+                    if n - before[w].get(v, 0)} for w, k_ in wrappers.items()}}
+            return out
+        return stage
+
+    slam_cls.__init__ = init
+    for name, fn in originals.items():
+        setattr(slam_cls, name, staged(name, fn))
+    try:
+        yield seen
+    finally:
+        slam_cls.__init__ = original_init
+        for name, fn in originals.items():
+            setattr(slam_cls, name, fn)
+
+
+def write_cli_sequence(tmp: str, extra_yaml: str = "", blob: bool = True) -> str:
+    """Write the cli phase's sequence (CLI_FRAMES frames of the dynamic
+    synthetic sequence at 640x480, or with `blob` False of the static one,
+    in TUM layout) and its config under `tmp`; returns the config's path.
+    The config inherits configs/rgbd/tum/base_config.yaml and sets the
+    sequence, its calibration, dystart 8 and `extra_yaml`."""
+    import torch
+
+    from fourdgs_torch import kernel_check as KC
+    from fourdgs_torch.data.synthetic import SyntheticDataset, write_tum_format
+
+    seq = os.path.join(tmp, "seq")
+    seq_cfg = (KC.bench_dynamic_config if blob else KC.bench_config)(CLI_FRAMES)
+    synthetic = SyntheticDataset(None, "", seq_cfg, device="cuda")
+    write_tum_format(synthetic, seq)
+    c = synthetic.config["Dataset"]["Calibration"]
+    cfg = os.path.join(tmp, "synthetic_tum_dynamic.yaml")
+    with open(cfg, "w") as f:
+        f.write("inherit_from: configs/rgbd/tum/base_config.yaml\n"
+                f"Dataset:\n  dataset_path: {seq}\n  Calibration:\n"
+                + "".join(f"    {k}: {c[k]}\n" for k in ("fx", "fy", "cx", "cy", "width",
+                                                        "height"))
+                + "    depth_scale: 5000.0\n    distorted: false\n"
+                "Training:\n  dystart: 8\n" + extra_yaml)
+    del synthetic
+    torch.cuda.empty_cache()
+    return cfg
+
+
+def cli_phase(wrappers) -> dict:
+    """The command line on a recorded-layout sequence (phase 7); returns its
+    record, with the launches by number of views in `launches_by_views`
+    and those of the refinement in `refinement_by_views`."""
+    import numpy as np
+    import torch
+
+    from fourdgs_torch import cli
+    from fourdgs_torch import kernel_check as KC
+    from fourdgs_torch.slam.runner import SLAM
+
+    tmp = tempfile.mkdtemp(prefix="fourdgs_cli_")
+    run_dirs = []
+    try:
+        t = time.time()
+        cfg = write_cli_sequence(tmp)
+        write_s = time.time() - t
+        ck = os.path.join(tmp, "checkpoint.npz")
+        common = ["--config", cfg, "--dynamic", "--capacity", str(KC.CAPACITY)]
+        for k in wrappers.values():
+            k.launches_by_views.clear()
+        with observe_stages(SLAM, wrappers) as seen:
+            metrics = cli.main(common + ["--eval", "--interval", "5", "--checkpoint", ck])
+        by_views = {name: dict(k.launches_by_views) for name, k in wrappers.items()}
+        slam = seen["slams"][0]
+        run_dirs.append(slam.save_dir)
+        with observe_stages(SLAM, wrappers) as seen_resume:
+            cli.main(common + ["--resume", ck, "--max-frames", "0"])
+        resumed = seen_resume["slams"][0]
+        run_dirs.append(resumed.save_dir)
+
+        def read(*parts):
+            with open(os.path.join(*parts), "rb") as f:
+                return f.read()
+
+        resumed_equal = (read(resumed.save_dir, "point_cloud", "final", "point_cloud.ply")
+                         == read(slam.save_dir, "point_cloud", "final_before_opt",
+                                 "point_cloud.ply"))
+        artifacts = ("config.yml", "pose.txt", "plot/stats_final.json", "plot/trj_final.json",
+                     "psnr/before_opt/final_result.json", "psnr/after_opt/final_result.json",
+                     "point_cloud/final/point_cloud.ply")
+        missing = [a for a in artifacts if not os.path.exists(os.path.join(slam.save_dir, a))]
+        masks = slam.dataset.dynamic_masks
+        dynamic_px = [int(masks[i].sum()) for i in sorted(masks)]
+        t_dec = time.time()
+        for i in range(len(slam.dataset)):
+            slam.dataset._read_color(i)
+            slam.dataset._read_depth(i)
+        decode_ms = (time.time() - t_dec) * 1e3 / len(slam.dataset)
+        stages = seen["stages"]
+        refine = stages["color_refinement"]["launches_by_views"]
+        iters = int(slam.config["Training"].get("refinement_iters", 1500))
+        out = {
+            "frames": metrics["n_frames"], "ate_rmse_m": metrics["ate_rmse"],
+            "psnr_before": metrics["psnr_before"], "psnr_after": metrics["psnr_after"],
+            "ssim_after": metrics["ssim_after"], "l1_depth_after": metrics["l1_depth_after"],
+            "keyframes": list(slam.kf_indices), "gaussians": slam.gmap.num_alive,
+            "deform_init": slam.deform_init, "dynamic_gaussians": int(
+                (slam.gmap.dygs & slam.gmap.alive).sum()),
+            "dynamic_px_per_frame": dynamic_px, "missing_artifacts": missing,
+            "resumed_map_equal": resumed_equal, "refinement_iters": iters,
+            "seconds": {"write_sequence": write_s, **{k: v["s"] for k, v in stages.items()},
+                        "png_decode_ms_per_frame": decode_ms, **metrics["phase_s"]},
+            "stage_launches_by_views": {k: v["launches_by_views"] for k, v in stages.items()},
+            "launches_by_views": by_views, "refinement_by_views": refine,
+            "centre_err_mm": centre_errors_mm(slam),
+        }
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for d in run_dirs:
+            shutil.rmtree(d, ignore_errors=True)
+            with contextlib.suppress(OSError):
+                os.rmdir(os.path.dirname(d))   # the results directory, if now empty
+    log("cli: " + json.dumps(out))
+    ok = (out["ate_rmse_m"] < 0.08 and out["psnr_after"] > 14
+          and out["psnr_after"] >= out["psnr_before"] and not missing and resumed_equal
+          and max(dynamic_px[1:], default=0) > 0
+          and all(refine[k] == {10: iters} for k in wrappers)
+          and all(np.isfinite(slam.poses_est[i]).all() for i in slam.poses_est))
+    if not ok:
+        raise SystemExit(f"cli phase out of bounds: {out}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -414,7 +591,18 @@ def main() -> int:
     log("dynamic iteration: " + json.dumps(prof))
     log(f"phase dynamic: {time.time() - t:.1f}s")
 
-    # ---- phase 7: the kernels line; ms, plain_ms and bound_ms are at 10
+    del slam
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the command line on a recorded-layout sequence, through
+    # the TUM loader, the segmenter, refinement and the artifacts
+    t = time.time()
+    os.chdir(HERE)   # the config's inherit_from and save_dir are relative to it
+    cli = cli_phase(wrappers)
+    record["cli"] = cli
+    log(f"phase cli: {time.time() - t:.1f}s")
+
+    # ---- phase 8: the kernels line; ms, plain_ms and bound_ms are at 10
     # views (the full static window), the *_1view, *_2view and *_26view
     # keys at tracking's shape, the static phase's mapping and the full 4D
     # window; max_abs_err over every number of views held
@@ -427,6 +615,9 @@ def main() -> int:
              "launches_by_views": by_views[name],
              "launches_dynamic": dyn_launches[name],
              "launches_by_views_dynamic": dyn_by_views[name],
+             "launches_cli": sum(cli["launches_by_views"][name].values()),
+             "launches_by_views_cli": cli["launches_by_views"][name],
+             "launches_by_views_cli_refinement": cli["refinement_by_views"][name],
              "max_abs_err": max(compare[v]["err"][k] for v in VIEWS for k in err_keys),
              **{key: compare[10][src] for key, src in timed.items()}, "library_ms": None}
         for v in (1, 2, 26):

@@ -10,13 +10,17 @@ hand-written kernels of `ops/rasterize/csrc/` (built with nvcc at first
 use into `_build/`); on a CPU tensor it runs their plain torch versions.
 
 Subpackages:
-  geometry   SE(3)/SO(3), projection, quaternions, spherical harmonics
-  ops        rasterizer (preprocess, binning, compositor), knn, image ops
-  models     fixed-capacity Gaussian map with masked Adam
-  slam       tracking, mapping, keyframes, cadence, losses, runner
-  data       synthetic RGB-D sequence
-  eval       ATE and rendering metrics
-  utils      config, logging, random draws
+  geometry    SE(3)/SO(3), projection, quaternions, spherical harmonics
+  ops         rasterizer (preprocess, binning, compositor), knn, image ops
+  models      fixed-capacity Gaussian map with masked Adam, deformation field
+  slam        tracking, mapping (and colour refinement), keyframes, cadence,
+              losses, runner
+  data        synthetic RGB-D sequence; TUM (and Bonn) and CoFusion loaders
+  perception  synthetic optical flow, the geometric motion segmenter
+  eval        ATE with its trajectory artifacts, rendering metrics
+  io          PLY export, checkpoints
+  utils       config (YAML with inherit_from), logging, random draws
+and `cli.py`, the command line (`python -m fourdgs_torch.cli`).
 """
 
 __version__ = "0.1.0"

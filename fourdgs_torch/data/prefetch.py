@@ -1,8 +1,12 @@
 """Frame iteration onto the device (port of fourdgs/data/prefetch.py).
 
-A plain generator stands in for the reference's prefetch thread: the
-synthetic sequence has no file decode to overlap with tracking, only one
-host-to-device copy of each frame.
+A plain generator stands in for the reference's prefetch thread. Reading
+a recorded frame (two PNG decodes) takes milliseconds against the
+hundreds of milliseconds that tracking one frame takes on the card, so
+there is little to overlap; and reading on the main thread, in order,
+segments frame j from the poses tracked up to frame j - 1 in every run,
+where the reference's thread, running ahead of tracking, makes the
+segmenter's pose depend on timing (ROADMAP §3).
 """
 
 from __future__ import annotations

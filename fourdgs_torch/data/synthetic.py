@@ -1,21 +1,26 @@
 """Synthetic RGB-D sequences rendered from a ground-truth Gaussian scene
-(port of fourdgs/data/synthetic.py without `write_tum_format`).
+(port of fourdgs/data/synthetic.py).
 
 A procedurally textured room built from Gaussians, an orbiting camera
 trajectory and, with `dynamic`, a blob of Gaussians that moves over
 normalized time, with exact motion masks; all drawn from numpy generators
 seeded from the config. Frames are rendered by the port's own rasterizer
 at the ground-truth poses, on the dataset's device, so SLAM on the output
-has a well-defined optimum.
+has a well-defined optimum. `write_tum_format` lays a sequence out as a
+TUM RGB-D recording, for the recorded-data path.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+from PIL import Image
 
 from fourdgs_torch.data.base import BaseDataset
 from fourdgs_torch.geometry.projection import projection_matrix
+from fourdgs_torch.geometry.quaternion import rotmat_to_quat
 from fourdgs_torch.ops.rasterize.api import RasterConfig, rasterize
 
 
@@ -176,3 +181,33 @@ class SyntheticDataset(BaseDataset):
             self._cache[idx] = self._render(idx)
         image, depth = self._cache[idx]
         return image, depth, self.poses[idx], self.motion_mask_gt(idx)
+
+
+def write_tum_format(dataset: SyntheticDataset, out_dir: str, depth_scale: float = 5000.0):
+    """Write the sequence in TUM RGB-D layout: `rgb/` and `depth/` PNGs
+    (colour as 8-bit RGB, depth as 16-bit at `depth_scale` units per
+    metre), `rgb.txt`, `depth.txt` and `groundtruth.txt` (tx ty tz qx qy
+    qz qw of camera-to-world) at 30 Hz timestamps."""
+    os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
+    rgb_lines, depth_lines = ["# color images"], ["# depth"]
+    gt_lines = ["# ground truth trajectory"]
+    for i in range(len(dataset)):
+        img, depth, T_cw, _ = dataset[i]
+        ts = f"{i / 30.0 + 1000.0:.6f}"
+        rgb_rel, depth_rel = f"rgb/{i:05d}.png", f"depth/{i:05d}.png"
+        Image.fromarray((np.transpose(img, (1, 2, 0)) * 255).astype(np.uint8)).save(
+            os.path.join(out_dir, rgb_rel))
+        d16 = np.clip(depth * depth_scale, 0, 65535).astype(np.uint16)
+        Image.fromarray(d16).save(os.path.join(out_dir, depth_rel))
+        rgb_lines.append(f"{ts} {rgb_rel}")
+        depth_lines.append(f"{ts} {depth_rel}")
+        T_wc = np.linalg.inv(T_cw)
+        q = rotmat_to_quat(torch.as_tensor(T_wc[:3, :3], dtype=torch.float32)).numpy()
+        tx, ty, tz = T_wc[:3, 3]
+        gt_lines.append(f"{ts} {tx:.6f} {ty:.6f} {tz:.6f} {q[1]:.6f} {q[2]:.6f} "
+                        f"{q[3]:.6f} {q[0]:.6f}")
+    for name, lines in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines),
+                        ("groundtruth.txt", gt_lines)):
+        with open(os.path.join(out_dir, name), "w") as f:
+            f.write("\n".join(lines) + "\n")

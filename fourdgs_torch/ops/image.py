@@ -73,26 +73,28 @@ def _gaussian_window(window_size: int, sigma: float) -> torch.Tensor:
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
          sigma: float = 1.5) -> torch.Tensor:
-    """Mean SSIM over a (C, H, W) pair, 11x11 Gaussian window, zero
-    ('SAME') padding."""
-    c = img1.shape[0]
+    """Mean SSIM over a (C, H, W) pair, or (V,) per pair of (V, C, H, W)
+    batches; 11x11 Gaussian window, zero ('SAME') padding."""
+    batched = img1.dim() == 4
+    x1, x2 = (img1, img2) if batched else (img1[None], img2[None])
+    c = x1.shape[1]
     win = _gaussian_window(window_size, sigma).to(img1.device)
     k = win[None, None].expand(c, 1, window_size, window_size)
 
     def filt(x):
-        return F.conv2d(x[None], k, padding=window_size // 2, groups=c)[0]
+        return F.conv2d(x, k, padding=window_size // 2, groups=c)
 
-    mu1 = filt(img1)
-    mu2 = filt(img2)
+    mu1 = filt(x1)
+    mu2 = filt(x2)
     mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
-    sigma1_sq = filt(img1 * img1) - mu1_sq
-    sigma2_sq = filt(img2 * img2) - mu2_sq
-    sigma12 = filt(img1 * img2) - mu12
+    sigma1_sq = filt(x1 * x1) - mu1_sq
+    sigma2_sq = filt(x2 * x2) - mu2_sq
+    sigma12 = filt(x1 * x2) - mu12
     C1, C2 = 0.01**2, 0.03**2
     ssim_map = ((2 * mu12 + C1) * (2 * sigma12 + C2)) / (
         (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2)
     )
-    return torch.mean(ssim_map)
+    return torch.mean(ssim_map, dim=(1, 2, 3)) if batched else torch.mean(ssim_map)
 
 
 def psnr(img1: torch.Tensor, img2: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:

@@ -1,2 +1,3 @@
-"""Perception for the 4D path: optical flow (only the exact synthetic
-provider so far)."""
+"""Perception: optical flow for the 4D path (the exact synthetic provider)
+and dynamic-object segmentation of recorded frames (the geometric
+segmenter)."""

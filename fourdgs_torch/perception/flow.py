@@ -6,14 +6,30 @@ A provider maps a frame pair (uid1, uid2) to pixel flows (fwd, bwd), each
 (H, W, 2): fwd from frame uid2 to uid1, bwd from uid1 to uid2.
 `SyntheticFlowProvider` computes them exactly for the synthetic sequence
 (camera reprojection of the ground-truth depth plus the blob's known
-motion); RAFT and GMA are not ported yet. `FlowCache` keeps each pair's
-flows normalized to the loss's units (px / [W, H] * 2), channel first.
-All host numpy: a pair's flow is computed once per run.
+motion). The RAFT and GMA networks that give recorded sequences their
+flow are not ported yet; `network_weights` finds their weight files.
+`FlowCache` keeps each pair's flows normalized to the loss's units
+(px / [W, H] * 2), channel first. All host numpy: a pair's flow is
+computed once per run.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+# weight files of the flow networks, relative to the working directory
+WEIGHTS_PATHS = {
+    "raft": ("pretrained/raft-things.npz", "pretrained/raft-things.pth"),
+    "gma": ("pretrained/gma-things.npz", "pretrained/gma-things.pth"),
+}
+
+
+def network_weights(flow_model: str) -> str | None:
+    """The first existing weights file of flow network `flow_model` ('raft'
+    or 'gma'), or None."""
+    return next((p for p in WEIGHTS_PATHS[flow_model] if os.path.exists(p)), None)
 
 
 def normalize_flow(flow_px: np.ndarray) -> np.ndarray:

@@ -12,6 +12,11 @@ to the loss or the statistics, so they are not rendered at all.
 Window-view tile bins are recomputed every `rebin_every` iterations (the
 reference's round structure); replay views are binned every iteration.
 The densify / opacity-reset cadence runs on the host between chunks.
+
+With `MappingConfig.refine` (colour refinement) every iteration's view
+set is instead `num_views` distinct keyframes drawn from the whole pool
+(`refine_picks`), binned afresh, under (1 - lambda) L1 + lambda (1 - SSIM)
++ 0.1 L1 depth, motion-masked; only the map parameters step.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from fourdgs_torch.geometry.quaternion import quat_normalize
 from fourdgs_torch.geometry.se3 import se3_exp
 from fourdgs_torch.geometry.sh import sh0_to_rgb
+from fourdgs_torch.ops.image import ssim
 from fourdgs_torch.models.gaussian_map import (
     AdamState,
     GaussianMap,
@@ -53,6 +59,7 @@ class MappingConfig(NamedTuple):
     lr_trans: float = 0.0005
     lr_exposure: float = 0.01
     isotropic_weight: float = 10.0
+    refine: bool = False          # colour-refinement objective and view draws
     rm_dynamic: bool = True       # mask dynamic pixels out of the loss
     raster: RasterConfig = RasterConfig()
     lrs: MapLRs = MapLRs()
@@ -117,6 +124,20 @@ def _views_bins(gmap: GaussianMap, store: KeyframeStore, slots, proj,
                                   proj, opac, config=cfg.raster, **intr.raster_kw())
 
 
+LAMBDA_DSSIM = 0.2   # the SSIM share of the colour-refinement loss
+
+
+def refine_loss(images_ab, images_gt, depth, depth_gt, motion):
+    """(V,) colour-refinement losses: (1 - lambda) L1 + lambda (1 - SSIM)
+    + 0.1 L1 depth, each over the static pixels."""
+    mf = motion.to(torch.float32)[:, None]
+    l1 = torch.mean(torch.abs((images_ab - images_gt) * mf), dim=(1, 2, 3))
+    dmask = ((depth_gt > 0.01) & motion).to(torch.float32)
+    l1d = torch.mean(torch.abs((depth - depth_gt) * dmask), dim=(1, 2))
+    return ((1 - LAMBDA_DSSIM) * l1 + LAMBDA_DSSIM * (1.0 - ssim(images_ab * mf, images_gt * mf))
+            + 0.1 * l1d)
+
+
 def map_chunk(
     gmap: GaussianMap,
     adam: AdamState,
@@ -127,7 +148,7 @@ def map_chunk(
     rand_pool: np.ndarray,      # (R,) int candidate slots for replay
     rand_pool_size: int,
     pose_adam: PoseAdam,
-    picks: np.ndarray,          # (num_iters, 2) raw replay draws
+    picks: np.ndarray,          # (num_iters, 2) raw replay draws; refine: (num_iters, R) uniform
     num_iters: int,
     step_after: int,            # map params step when i > step_after
     iter_base: int,             # global iteration_count at chunk start
@@ -159,18 +180,25 @@ def map_chunk(
     b1, b2, eps = 0.9, 0.999, 1e-8
 
     for i in range(num_iters):
-        if i % rb == 0:
-            bins_w = _views_bins(gmap, store, w_slots, proj, intr, cfg)
-        # distinct replay picks from the host pool
-        r1, r2 = int(picks[i, 0]), int(picks[i, 1])
-        r2 = (r2 + 1 if r2 >= r1 else r2) % size
-        r_slots = np.asarray([rand_pool[r1], rand_pool[r2]][:vr])[rand_valid]
-        slots = torch.as_tensor(np.concatenate([window_slots[w_act], r_slots]),
-                                device=dev, dtype=torch.long)
-        bins = bins_w
-        if r_slots.size:
-            bins = cat_bins(bins_w, _views_bins(gmap, store, slots[len(w_act):],
-                                                proj, intr, cfg))
+        if cfg.refine:
+            # the whole view set: distinct keyframes from the full pool
+            r_slots, r_valid = refine_picks(picks[i], rand_pool, rand_pool_size,
+                                            cfg.num_views)
+            slots = torch.as_tensor(r_slots[r_valid], device=dev, dtype=torch.long)
+            bins = _views_bins(gmap, store, slots, proj, intr, cfg)
+        else:
+            if i % rb == 0:
+                bins_w = _views_bins(gmap, store, w_slots, proj, intr, cfg)
+            # distinct replay picks from the host pool
+            r1, r2 = int(picks[i, 0]), int(picks[i, 1])
+            r2 = (r2 + 1 if r2 >= r1 else r2) % size
+            r_slots = np.asarray([rand_pool[r1], rand_pool[r2]][:vr])[rand_valid]
+            slots = torch.as_tensor(np.concatenate([window_slots[w_act], r_slots]),
+                                    device=dev, dtype=torch.long)
+            bins = bins_w
+            if r_slots.size:
+                bins = cat_bins(bins_w, _views_bins(gmap, store, slots[len(w_act):],
+                                                    proj, intr, cfg))
         ov_seen = ov_seen or bool(bins.overflow.any())
         pm_seen = max(pm_seen, int(bins.num_pairs.max()))
 
@@ -186,11 +214,16 @@ def map_chunk(
                               config=cfg.raster, bins=bins, **kw)
         images_ab = (torch.exp(exp_abs[:, 0])[:, None, None, None] * out.color
                      + exp_abs[:, 1][:, None, None, None])
-        per_view = mapping_loss_rgbd(
-            images_ab, out.depth, fetch_images(store, slots), store.depths[slots],
-            motion_mask=store.motion[slots], alpha=cfg.alpha,
-            rgb_boundary_threshold=cfg.rgb_boundary_threshold, rm_dynamic=cfg.rm_dynamic,
-        )
+        if cfg.refine:
+            per_view = refine_loss(images_ab, fetch_images(store, slots), out.depth,
+                                   store.depths[slots], store.motion[slots])
+        else:
+            per_view = mapping_loss_rgbd(
+                images_ab, out.depth, fetch_images(store, slots), store.depths[slots],
+                motion_mask=store.motion[slots], alpha=cfg.alpha,
+                rgb_boundary_threshold=cfg.rgb_boundary_threshold,
+                rm_dynamic=cfg.rm_dynamic,
+            )
         iso = cfg.isotropic_weight * isotropic_loss(torch.exp(params.scaling), gmap.alive)
         loss = torch.sum(per_view) + iso
         grads = torch.autograd.grad(loss, list(params) + [dtaus, dexps, taps])
@@ -213,6 +246,8 @@ def map_chunk(
                 p2, adam = adam_step(gmap.params, g_params, adam, cfg.lrs,
                                      gmap.alive, xyz_lr_mult=mult)
                 gmap = gmap._replace(params=p2)
+            if cfg.refine:
+                continue
 
             # pose + exposure step of the window views
             gp = torch.zeros((vw, 8), device=dev)

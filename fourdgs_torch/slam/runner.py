@@ -18,7 +18,20 @@ keyframe from `dystart` on, Gaussians spawn on its dynamic pixels
 warmed up on that keyframe; every later keyframe phase is one
 `map_chunk_dynamic` with flow losses against the closest earlier
 keyframe, followed by one densify check. Flow comes from the exact
-synthetic provider (RAFT is not ported).
+synthetic provider; on recorded sequences, whose flow needs RAFT (not
+ported yet), the flow loss is off.
+
+Recorded sequences (`tum`, which also reads the Bonn layout, and
+`CoFusion`) with `model_params.dynamic_model` get the geometric motion
+segmenter, fed the constant-velocity prediction from the tracked poses of
+the two frames before the one it segments. Frames are read, and so
+segmented, on the main thread in order: each mask is the same from run to
+run.
+
+After `run`, the command line (cli.py) evaluates the trajectory
+(`eval_ate`) and the renders (`eval_rendering`), refines colour over
+random keyframes (`color_refinement`) and writes the artifacts (`save`,
+`save_checkpoint`) under `save_dir`.
 
 The port runs on the CUDA device unless `device="cpu"` is passed; with no
 device and no CUDA it raises. It has no fixed pair buffer, so the
@@ -30,6 +43,8 @@ consumes its keys.
 
 from __future__ import annotations
 
+import json
+import os
 import time
 
 import numpy as np
@@ -38,6 +53,7 @@ import torch
 from fourdgs_torch.data.base import load_dataset
 from fourdgs_torch.data.prefetch import iter_frames
 from fourdgs_torch.device import resolve_device
+from fourdgs_torch.geometry.se3 import se3_exp
 from fourdgs_torch.models import deform
 from fourdgs_torch.models import gaussian_map as gm
 from fourdgs_torch.ops.rasterize.api import RasterConfig
@@ -70,6 +86,8 @@ class SLAM:
     def __init__(
         self,
         config,
+        save_dir: str | None = None,
+        save_interval: int = 50,
         dynamic: bool = False,
         max_frames: int | None = None,
         capacity: int = 1 << 14,
@@ -80,6 +98,8 @@ class SLAM:
     ):
         self.device = resolve_device(device)
         self.config = config
+        self.save_dir = save_dir
+        self.save_interval = save_interval
         self.dynamic = dynamic
         tr = config["Training"]
         if tr.get("monocular", False) or tr.get("rm_initdy", False):
@@ -114,6 +134,13 @@ class SLAM:
         self.intr = Intrinsics.from_config(config)
         self.dataset = load_dataset(None, ds.get("dataset_path", ""), config,
                                     device=self.device)
+        if ds.get("type") in ("tum", "CoFusion") and config.get(
+                "model_params", {}).get("dynamic_model", True):
+            from fourdgs_torch.perception.segmentation import make_segmenter
+
+            seg = make_segmenter(config, self.intr)
+            seg.pose_provider = self._predict_pose
+            self.dataset.mask_fn = seg
         n_frames = len(self.dataset)
         self.n_frames = n_frames if max_frames is None else min(n_frames, max_frames)
 
@@ -126,10 +153,20 @@ class SLAM:
         self.flow_weight = float(tr.get("flow_loss", 3))
         self.flow_weight_fine = float(tr.get("flow_loss_fine", tr.get("flow_loss", 3)))
         self.flow_cache = None
-        if dynamic:
+        if dynamic and ds.get("type") == "synthetic":
             from fourdgs_torch.perception.flow import FlowCache, SyntheticFlowProvider
 
             self.flow_cache = FlowCache(SyntheticFlowProvider(self.dataset))
+        elif dynamic:
+            from fourdgs_torch.perception.flow import network_weights
+
+            flow_model = str(tr.get("flow_model", "raft")).lower()
+            weights = network_weights(flow_model)
+            if weights is not None:
+                raise NotImplementedError(f"{flow_model.upper()} is not ported yet (ROADMAP "
+                                          f"item 15); found weights {weights}")
+            Log(f"{flow_model.upper()} weights not found; flow loss disabled")
+            self.flow_weight = 0.0
         self.max_capacity = max_capacity
         self.raster = RasterConfig()
         self.track_cfg = TrackingConfig(
@@ -484,6 +521,18 @@ class SLAM:
         else:
             self._run_mapping(iters, step_after)
 
+    def _predict_pose(self) -> np.ndarray:
+        """Constant-velocity w2c prediction for the next frame from the two
+        latest tracked poses (the segmenter's pose source)."""
+        if not self.poses_est:
+            return np.eye(4, dtype=np.float32)
+        ks = sorted(self.poses_est)
+        T1 = self.poses_est[ks[-1]]
+        if len(ks) == 1:
+            return T1
+        T0 = self.poses_est[ks[-2]]
+        return (T1 @ np.linalg.inv(T0) @ T1).astype(np.float32)
+
     def run(self) -> dict:
         """Process the sequence; returns frames/s, the map size and the
         seconds spent per phase."""
@@ -540,6 +589,11 @@ class SLAM:
                 last_kf = idx
                 Log(f"KF {idx}: {self.gmap.num_alive} gaussians, window {self.window} "
                     f"({dt:.1f}s)", tag="Backend")
+                results = self.config.get("Results", {})
+                if (results.get("save_trj", False) and self.save_dir
+                        and self.kf_total % int(results.get("save_trj_kf_intv", 5)) == 0):
+                    stats = self.eval_ate(label=f"frame_{idx}")
+                    Log(f"ATE RMSE @ frame {idx}: {stats['rmse']:.4f} m", tag="Eval")
 
         self._sync()
         elapsed = time.time() - t0
@@ -556,28 +610,147 @@ class SLAM:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
-    def eval_ate(self) -> dict:
-        from fourdgs_torch.eval.ate import evaluate_ate
+    def color_refinement(self, iterations: int = 1500):
+        """Global colour refinement: every iteration maps `num_views`
+        distinct keyframes drawn uniformly from the whole history, the map
+        parameters alone stepping, their learning rate scheduled from the
+        refinement's own iteration count."""
+        vw = self.map_cfg.num_window_views
+        pool = [self.kf_slot[k] for k in self.kf_indices]
+        # the pool padded to a power of two of at least 8: the draws are one
+        # per entry, as the reference's
+        pool_full = np.zeros(1 << max(3, int(np.ceil(np.log2(max(len(pool), 1))))), np.int64)
+        pool_full[:len(pool)] = pool
+        res = map_chunk(
+            self.gmap, self.adam, self.store, np.zeros(vw, np.int64), np.zeros(vw, bool),
+            np.zeros(vw, bool), pool_full, len(pool), init_pose_adam(vw, self.device),
+            self.draws.refine_chunk(iterations, len(pool_full)), iterations, -1, 0,
+            self.intr, self.map_cfg._replace(refine=True),
+        )
+        self._note_pairs(res.num_pairs, res.overflow)
+        self.gmap, self.adam, self.store = res.gmap, res.adam, res.store
+
+    def eval_ate(self, label: str = "final") -> dict:
+        """ATE of the tracked poses; with `save_dir`, also the trajectory
+        artifacts of `label`."""
+        from fourdgs_torch.eval.ate import evaluate_ate, save_trajectory
 
         ids = sorted(self.poses_est)
-        return evaluate_ate([self.poses_est[i] for i in ids],
-                            [np.asarray(self.dataset.poses[i]) for i in ids])
+        est = [self.poses_est[i] for i in ids]
+        gt = [np.asarray(self.dataset.poses[i]) for i in ids]
+        if self.save_dir:
+            return save_trajectory(est, gt, ids, self.save_dir, label)
+        return evaluate_ate(est, gt)
 
-    def eval_rendering(self, interval: int | None = None) -> dict:
+    def _render_at(self, T: torch.Tensor, idx: int):
+        """(colour, depth) of the map at pose T, the 4D map deformed to frame
+        idx's time."""
+        if self.dynamic and self.deform_init:
+            # each frame at the time its keyframes carry
+            t = torch.tensor(idx / max(len(self.dataset) - 1, 1), device=self.device)
+            with torch.no_grad():
+                out, _ = mdyn._deformed_render(self.gmap, self.deform, T, t,
+                                               self.intr.proj(device=self.device),
+                                               self.intr, self.map_cfg)
+        else:
+            out = render_keyframe(self.gmap, T, self.intr, self.map_cfg)
+        return out.color, out.depth
+
+    def eval_rendering(self, label: str = "final", interval: int | None = None,
+                       dump_interval: int | None = None) -> dict:
+        """Rendering metrics over the tracked frames (every `interval`-th);
+        with `save_dir`, written under `psnr/<label>/`, with the renders, the
+        ground truth and a novel view (the pose moved by a fixed offset)
+        dumped every `dump_interval` frames (`save_interval` when None)."""
         from fourdgs_torch.eval.rendering import eval_rendering
 
+        tau = torch.tensor([0.1, -0.05, 0.0, 0.0, 0.2, 0.0], device=self.device)
+
         def render_at(idx):
-            T = self._pose_tensor(self.poses_est[idx])
-            if self.dynamic and self.deform_init:
-                # each frame at the time its keyframes carry
-                t = torch.tensor(idx / max(len(self.dataset) - 1, 1), device=self.device)
-                with torch.no_grad():
-                    out, _ = mdyn._deformed_render(self.gmap, self.deform, T, t,
-                                                   self.intr.proj(device=self.device),
-                                                   self.intr, self.map_cfg)
-            else:
-                out = render_keyframe(self.gmap, T, self.intr, self.map_cfg)
-            return out.color, out.depth
+            return self._render_at(self._pose_tensor(self.poses_est[idx]), idx)
+
+        def novel_at(idx):
+            return self._render_at(se3_exp(tau) @ self._pose_tensor(self.poses_est[idx]), idx)
 
         return eval_rendering(render_at, self.dataset, sorted(self.poses_est),
-                              mask_dynamic=not self.dynamic, interval=interval or 1)
+                              save_dir=self.save_dir, label=label,
+                              mask_dynamic=not self.dynamic, interval=interval or 1,
+                              novel_render_fn=novel_at if self.save_dir else None,
+                              dump_interval=dump_interval or self.save_interval)
+
+    def save_checkpoint(self, path: str):
+        """The whole state: map, Adam, keyframe store and host bookkeeping
+        (io/checkpoint.py), and the deformation field beside it."""
+        from fourdgs_torch.io.checkpoint import save_deform, save_state
+
+        host = {
+            "iteration_count": self.iteration_count,
+            "kf_total": self.kf_total,
+            "kf_indices": self.kf_indices,
+            "window": self.window,
+            "kf_slot": {str(k): v for k, v in self.kf_slot.items()},
+            "poses_est": {str(k): np.asarray(v).tolist() for k, v in self.poses_est.items()},
+            "exposures": {str(k): np.asarray(v).tolist() for k, v in self.exposures.items()},
+            "initialized": True,   # RGB-D runs start initialized
+            "median_depth": self.median_depth,
+            "deform_init": self.deform_init,
+        }
+        save_state(path, self.gmap, self.adam, self.store, host)
+        if self.deform is not None:
+            save_deform(path + ".deform.npz", self.deform, self.deform_adam)
+
+    def _deform_template(self) -> deform.ControlNodes:
+        """Zero control nodes and MLP at the configured node capacity, to
+        load a saved field into."""
+        cap, dev = int(self.hp.node_num), self.device
+        ws = [torch.zeros(d, device=dev) for d in deform.mlp_dims()]
+        heads = [torch.zeros((ws[-1].shape[1], d), device=dev) for _, d, _ in deform.HEADS]
+        return deform.ControlNodes(
+            nodes=torch.zeros((cap, 3), device=dev), radius_raw=torch.zeros(cap, device=dev),
+            weight_raw=torch.zeros((cap, 1), device=dev),
+            valid=torch.zeros(cap, dtype=torch.bool, device=dev),
+            mlp=deform.init_mlp(ws, heads))
+
+    def load_checkpoint(self, path: str):
+        """Restore a `save_checkpoint` of this package or the reference's; the
+        window's visibility is recomputed."""
+        from fourdgs_torch.io.checkpoint import load_deform, load_state
+
+        self.gmap, self.adam, self.store, host = load_state(path, self.gmap, self.adam,
+                                                            self.store)
+        self.iteration_count = host["iteration_count"]
+        self.kf_indices = list(host["kf_indices"])
+        self.kf_total = int(host.get("kf_total", len(self.kf_indices)))
+        self.window = list(host["window"])
+        self.kf_slot = {int(k): v for k, v in host["kf_slot"].items()}
+        self.poses_est = {int(k): np.asarray(v) for k, v in host["poses_est"].items()}
+        self.exposures = {int(k): np.asarray(v) for k, v in host["exposures"].items()}
+        self.median_depth = host["median_depth"]
+        if host.get("deform_init", False) and os.path.exists(path + ".deform.npz"):
+            if self.deform is None:
+                self.deform = self._deform_template()
+                self.deform_adam = mdyn.init_deform_adam(self.deform)
+            self.deform, adam = load_deform(path + ".deform.npz", self.deform,
+                                            self.deform_adam)
+            if adam is not None:
+                self.deform_adam = adam
+            self.deform_init = True
+        for kf in self.window:
+            self.occ_visibility[kf], _ = self._visibility_at(self.store.T_cw[self.kf_slot[kf]])
+
+    def save(self, label: str = "final"):
+        """With `save_dir`: `point_cloud/<label>/point_cloud.ply`, the field
+        as `deform/<label>/deform.npz`, and the metrics as
+        `final_result.json`."""
+        if not self.save_dir:
+            return
+        from fourdgs_torch.io.checkpoint import save_deform
+        from fourdgs_torch.io.ply import save_gaussians_ply
+
+        pdir = os.path.join(self.save_dir, "point_cloud", label)
+        os.makedirs(pdir, exist_ok=True)
+        save_gaussians_ply(self.gmap, os.path.join(pdir, "point_cloud.ply"))
+        if self.deform is not None:
+            save_deform(os.path.join(self.save_dir, "deform", label, "deform.npz"), self.deform)
+        with open(os.path.join(self.save_dir, "final_result.json"), "w") as f:
+            json.dump(self.metrics, f, indent=2)

@@ -1,10 +1,13 @@
-"""Nested config dict with attribute access and the deformation
-hyperparameter defaults (port of fourdgs/utils/config.py without the YAML
-loader)."""
+"""Config system: the YAML loader with recursive `inherit_from`, a nested
+dict with attribute access, and the deformation hyperparameter defaults
+(port of fourdgs/utils/config.py)."""
 
 from __future__ import annotations
 
+import os
 from typing import Any
+
+import yaml
 
 
 class ConfigDict(dict):
@@ -18,6 +21,17 @@ class ConfigDict(dict):
 
     def __setattr__(self, name: str, value: Any) -> None:
         self[name] = value
+
+    def to_plain(self) -> dict:
+        return ConfigDict.unwrap(self)
+
+    @staticmethod
+    def unwrap(obj: Any) -> Any:
+        if isinstance(obj, dict):
+            return {k: ConfigDict.unwrap(v) for k, v in obj.items()}
+        if isinstance(obj, list):
+            return [ConfigDict.unwrap(v) for v in obj]
+        return obj
 
     @staticmethod
     def wrap(obj: Any) -> Any:
@@ -37,6 +51,33 @@ def update_recursive(dict1: dict, dict2: dict) -> None:
             update_recursive(dict1[k], v)
         else:
             dict1[k] = v
+
+
+def load_config(path: str, default_path: str | None = None) -> ConfigDict:
+    """Load a YAML config, recursively resolving its `inherit_from` key
+    (child values win). A relative `inherit_from` is tried against the
+    working directory first, then as a file beside the config, then
+    against each of the config's four nearest parent directories, so
+    configs load from any working directory."""
+    with open(path, "r") as f:
+        cfg_special = yaml.safe_load(f) or {}
+
+    inherit_from = cfg_special.get("inherit_from")
+    if inherit_from is not None:
+        here = os.path.dirname(os.path.abspath(path))
+        candidates = [inherit_from, os.path.join(here, os.path.basename(inherit_from))]
+        candidates += [os.path.join(os.path.abspath(os.path.join(here, *[".."] * up)),
+                                    inherit_from) for up in range(1, 5)]
+        inherit_from = next((c for c in candidates if os.path.exists(c)), inherit_from)
+        cfg = dict(load_config(inherit_from, default_path))
+    elif default_path is not None:
+        with open(default_path, "r") as f:
+            cfg = yaml.safe_load(f) or {}
+    else:
+        cfg = {}
+
+    update_recursive(cfg, cfg_special)
+    return ConfigDict.wrap(cfg)
 
 
 def hidden_params_defaults() -> ConfigDict:

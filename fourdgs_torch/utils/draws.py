@@ -46,6 +46,12 @@ class TorchDraws:
         r2 = torch.randint(0, max(size - 1, 1), (num_iters,), generator=self._host)
         return torch.stack([r1, r2], dim=1).numpy()
 
+    def refine_chunk(self, num_iters: int, pool_len: int) -> np.ndarray:
+        """(num_iters, pool_len) uniform [0, 1) host draws for one
+        refine-mode `map_chunk`: per iteration one per pool entry, whose
+        order picks the views (`refine_picks`)."""
+        return torch.rand((num_iters, pool_len), generator=self._host).numpy()
+
     def fps_start(self, valid: torch.Tensor) -> torch.Tensor:
         """The first control node: a point index drawn uniformly from the
         valid points, on the device (0-d)."""

@@ -29,14 +29,16 @@ J_RASTER = JRasterConfig(use_oracle=False, tile_cap=256, max_pairs=1 << 13,
                          with_n_touched=False)
 
 
-def _state():
+def _state(depth_jitter: float = 0.0):
     """A map spawned from a textured RGB-D view, and 4 keyframes at
-    perturbed poses of that view (uid 0 in slot 0)."""
+    perturbed poses of that view (uid 0 in slot 0). The view's depth is 3 m
+    with a 2 m box, plus seeded noise of `depth_jitter` m."""
     v, u = np.mgrid[0:H, 0:W]
     img = np.stack([0.5 + 0.4 * np.sin(u / 4.0), 0.5 + 0.4 * np.cos(v / 6.0),
                     0.5 + 0.3 * np.sin((u + v) / 7.0)]).astype(np.float32)
     depth = np.full((H, W), 3.0, np.float32)
     depth[15:35, 20:45] = 2.0
+    depth += depth_jitter * np.random.default_rng(5).normal(size=(H, W)).astype(np.float32)
     cap = 1024
     cands = candidates_from_rgbd(jax.random.key(1), jnp.asarray(img), jnp.asarray(depth),
                                  jnp.eye(4), J_INTR.fx, J_INTR.fy, J_INTR.cx, J_INTR.cy,

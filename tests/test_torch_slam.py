@@ -47,6 +47,9 @@ class JaxDraws:
         # map_chunk's replay picks (fourdgs/slam/mapping.py:331-333)
         return jax_picks(self._next_key(), num_iters, pool_size)
 
+    def refine_chunk(self, num_iters, pool_len):
+        return jax_refine_draws(self._next_key(), num_iters, pool_len)
+
     def fps_start(self, valid):
         # init_nodes splits its key (fourdgs/models/deform.py:144): the FPS
         # start from the first half (fourdgs/ops/knn.py:123), the MLP from
@@ -94,6 +97,13 @@ def jax_picks(key, num_iters, pool_size):
     r2 = jax.vmap(lambda k: jax.random.randint(jax.random.fold_in(k, 1), (), 0,
                                                max(size - 1, 1)))(ki)
     return np.stack([np.asarray(r1), np.asarray(r2)], 1).astype(np.int64)
+
+
+def jax_refine_draws(key, num_iters, pool_len):
+    """What a refine-mode map_chunk draws from `key`: per iteration one
+    uniform per pool entry (fourdgs/slam/mapping.py:76-87, 293-297)."""
+    return np.stack([np.asarray(jax.random.uniform(jax.random.fold_in(key, i), (pool_len,)))
+                     for i in range(num_iters)])
 
 
 def jax_dynamic_draws(key, num_iters, pool_size, num_views):
