@@ -33,8 +33,8 @@ Phases, one line each, in order (any failure exits non-zero):
               sequence written in TUM layout to a temporary directory,
               with a config inheriting configs/rgbd/tum/base_config.yaml
               (only the sequence, its calibration and dystart 8 set):
-              TUM loader, motion segmenter, 4D SLAM (no flow loss: RAFT
-              is not ported), ATE, evaluation, 1500 refinement iterations
+              TUM loader, motion segmenter, 4D SLAM (no flow loss: no
+              flow weights are found), ATE, evaluation, 1500 refinement iterations
               at 10 views (44 frames make the 10 keyframes that need),
               evaluation, artifacts, a checkpoint resumed with --resume;
               held to ATE < 0.08 m, PSNR after refinement > 14 dB and not
@@ -42,12 +42,35 @@ Phases, one line each, in order (any failure exits non-zero):
               the resumed map equal to the checkpointed one, and every
               refinement iteration at 10 views; with the seconds per stage
               and the launches by number of views per stage
-  8. kernels  one JSON line: per kernel its launches in the SLAM phase, in
-              the dynamic phase and in the cli phase (in all, by number of
-              views, and the cli phase's refinement by number of views),
-              largest error against its plain version, times and bound at
-              10 views (the full static window), and (*_1view, *_2view,
-              *_26view) at 1, 2 and 26 views
+              (and, with a seeded LPIPS weights file in
+              $FOURDGS_LPIPS_WEIGHTS, a finite mean LPIPS before and after
+              refinement; no flow weights are found, so no flow loss)
+  8. perception  RAFT (20 iterations) and GMA (12, gamma 0.7) at 640x480
+              and the published widths, on two frames of the dynamic
+              synthetic sequence, weights seeded from torch.Generators,
+              through their providers: the card's flows held against the
+              port's own CPU run of the same modules and weights within
+              FLOW_TOL px, the forward-backward masks on at least
+              MASK_AGREE of pixels, and LPIPS card against CPU within rtol
+              1e-4; with ms per flow and per LPIPS pair (CUDA events)
+  9. flow     the command line, fourdgs_torch.cli.main(... --dynamic
+              --interval 5), on a 14-frame 640x480 dynamic synthetic
+              sequence written in CoFusion layout (the blob's exact masks in
+              mask_colour/, so the deformation initialises at dystart 8),
+              with a config inheriting configs/rgbd/cofusion/base_config.yaml
+              and a seeded pretrained/raft-things.npz in its (temporary)
+              working directory: RAFT on the card supervises 4D mapping.
+              Held: flow weight 3, every window view with an earlier
+              keyframe given its flow, each pair computed once, compositor
+              launches in 4D chunks with flow views, finite poses; printed,
+              not held (seeded weights give no real supervision): ATE,
+              PSNR, seconds per stage, the share of consistent mask pixels
+ 10. kernels  one JSON line: per kernel its launches in the SLAM phase, in
+              the dynamic phase, in the cli phase and in the flow phase (in
+              all, by number of views, and the cli phase's refinement by
+              number of views), largest error against its plain version,
+              times and bound at 10 views (the full static window), and
+              (*_1view, *_2view, *_26view) at 1, 2 and 26 views
 then the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -75,7 +98,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # flow views); its refinement launches 10
 VIEWS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 26)
 FLOW_VIEWS = {7: 4, 26: 16}   # of those views, how many carry flow payloads
+# held besides: 10 views of which 6 carry flow payloads, the second 4D
+# keyframe of the dynamic and flow phases (4 window views and 3 flow pairs)
+FLOW_SHAPES = ((10, 6),)
 CLI_FRAMES = 44   # keyframes 0, 5, 8 (dystart), 13, ..., 43: ten, for refinement at 10 views
+# keyframes 0, 5, 8 (dystart) and 13, the last frame: two 4D phases, three
+# flow pairs (with 18 frames the script took 659 s on an H100 80GB HBM3 at 700 W)
+FLOW_FRAMES = 14
+FLOW_TOL = 5e-2   # px, card against CPU, RAFT and GMA flows at 640x480
+MASK_AGREE = 0.999
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_OPS_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # per (pixel, pair) operation counts of the kernels' arithmetic
@@ -111,11 +142,11 @@ def work_counts(fields, bins, grid, n_contrib):
     return int(n_contrib.sum()), applied
 
 
-def compare_kernels(slam, n_views: int, seed: int) -> dict:
+def compare_kernels(slam, n_views: int, seed: int, n_flow: int | None = None) -> dict:
     """Hold both kernels' wrappers against their plain versions on
     `n_views` views of the current map at the sequence's ground-truth
-    poses (the last FLOW_VIEWS[n_views] with flow payloads), and time
-    them."""
+    poses (the last `n_flow`, by default FLOW_VIEWS[n_views], with flow
+    payloads), and time them."""
     import torch
 
     from fourdgs_torch import kernel_check as KC
@@ -123,7 +154,7 @@ def compare_kernels(slam, n_views: int, seed: int) -> dict:
     from fourdgs_torch.ops.rasterize import kernels as K
 
     dev = slam.device
-    n_flow = FLOW_VIEWS.get(n_views, 0)
+    n_flow = FLOW_VIEWS.get(n_views, 0) if n_flow is None else n_flow
     fields, bins, grid = KC.compositor_inputs(slam, n_views, n_flow, seed)
     args = (fields, bins.pair_gid, bins.tile_start, bins.tile_count)
     kw = dict(tiles_per_view=grid.tiles, tx_n=grid.tx_n)
@@ -396,6 +427,8 @@ def cli_phase(wrappers) -> dict:
             "frames": metrics["n_frames"], "ate_rmse_m": metrics["ate_rmse"],
             "psnr_before": metrics["psnr_before"], "psnr_after": metrics["psnr_after"],
             "ssim_after": metrics["ssim_after"], "l1_depth_after": metrics["l1_depth_after"],
+            "lpips_before": metrics["lpips_before"], "lpips_after": metrics["lpips_after"],
+            "flow_weight": slam.flow_weight,
             "keyframes": list(slam.kf_indices), "gaussians": slam.gmap.num_alive,
             "deform_init": slam.deform_init, "dynamic_gaussians": int(
                 (slam.gmap.dygs & slam.gmap.alive).sum()),
@@ -414,13 +447,252 @@ def cli_phase(wrappers) -> dict:
             with contextlib.suppress(OSError):
                 os.rmdir(os.path.dirname(d))   # the results directory, if now empty
     log("cli: " + json.dumps(out))
+    lpips_finite = all(out[k] is not None and np.isfinite(out[k])
+                       for k in ("lpips_before", "lpips_after"))
     ok = (out["ate_rmse_m"] < 0.08 and out["psnr_after"] > 14
           and out["psnr_after"] >= out["psnr_before"] and not missing and resumed_equal
+          and lpips_finite and out["flow_weight"] == 0.0
           and max(dynamic_px[1:], default=0) > 0
           and all(refine[k] == {10: iters} for k in wrappers)
           and all(np.isfinite(slam.poses_est[i]).all() for i in slam.poses_est))
     if not ok:
         raise SystemExit(f"cli phase out of bounds: {out}")
+    return out
+
+
+def flow_flops(model, iters: int, h: int, w: int) -> float:
+    """Float operations of one flow of `model` at h x w: its convolutions,
+    counted from their output shapes on the meta device, the correlation
+    volume, and for GMA the attention and each iteration's aggregation
+    (two per multiply-add)."""
+    import torch
+
+    total = [0.0]
+
+    def hook(m, inp, out):
+        total[0] += 2.0 * out.numel() * m.weight[0].numel()
+
+    model = type(model)().to("meta")
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.register_forward_hook(hook)
+    x = torch.zeros(1, 3, h, w, device="meta")
+    with torch.no_grad():
+        model(x, x, iters=iters)
+    hw = (h // 8) * (w // 8)
+    total[0] += 2.0 * hw * hw * 256
+    if hasattr(model, "att"):
+        total[0] += 2.0 * hw * hw * 128 * (1 + iters)
+    return total[0]
+
+
+def perception_phase() -> dict:
+    """RAFT and GMA (phase 8) through their providers on the card and on the
+    CPU, with the same seeded weights, on two frames of the dynamic
+    synthetic sequence at 640x480; and LPIPS on the same pair."""
+    import numpy as np
+    import torch
+
+    from fourdgs_torch import convert
+    from fourdgs_torch import kernel_check as KC
+    from fourdgs_torch.data.synthetic import SyntheticDataset
+    from fourdgs_torch.eval import lpips as L
+    from fourdgs_torch.perception import gma as G
+    from fourdgs_torch.perception import raft as R
+    from fourdgs_torch.perception.flow import compute_fwdbwd_mask
+    from fourdgs_torch.perception.weights_io import save_pytree_npz
+
+    ds = SyntheticDataset(None, "", KC.bench_dynamic_config(FLOW_FRAMES), device="cuda")
+    uids = (13, 8)   # a keyframe and its closest earlier one in the flow phase
+    img1, img2 = (torch.as_tensor(ds[i][0]) for i in uids)
+    del ds
+    torch.cuda.empty_cache()
+    gma = R.init_weights(G.GMA(), torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        gma.update_block.aggregator.gamma.fill_(0.7)
+    nets = {"raft": (R.RaftFlowProvider, R.init_weights(R.RAFT(), torch.Generator().manual_seed(1))),
+            "gma": (G.GmaFlowProvider, gma)}
+    out = {"frames": list(uids)}
+    tmp = tempfile.mkdtemp(prefix="fourdgs_perception_")
+    try:
+        for name, (provider_cls, model) in nets.items():
+            path = os.path.join(tmp, f"{name}-things.npz")
+            save_pytree_npz(path, convert.flow_params(model))
+            card, cpu = (provider_cls(path, device=d) for d in ("cuda", "cpu"))
+            flows_card = card(*uids, img1, img2)
+            t = time.time()
+            flows_cpu = cpu(*uids, img1, img2)
+            cpu_s = (time.time() - t) / 2
+            masks_card = compute_fwdbwd_mask(*flows_card)
+            masks_cpu = compute_fwdbwd_mask(*flows_cpu)
+            err = max(float(np.abs(a - b).max()) for a, b in zip(flows_card, flows_cpu))
+            ms = KC.cuda_ms(lambda: card.flow(img2, img1), 5)
+            out[name] = {
+                "iters": card.iters, "max_abs_err_px": err,
+                "flow_abs_max_px": float(max(np.abs(f).max() for f in flows_cpu)),
+                "flow_abs_median_px": float(np.median(np.abs(flows_cpu[0]))),
+                "masks_agree": min(float((a == b).mean()) for a, b in zip(masks_card, masks_cpu)),
+                "mask_share": [float(m.mean()) for m in masks_card],
+                "ms_per_flow": ms,
+                "profile": _device_profile(lambda: card.flow(img2, img1), 1, ms),
+                "gflop_per_flow": flow_flops(model, card.iters, *img1.shape[1:]) / 1e9,
+                "cpu_s_per_flow": cpu_s,
+                "finite": bool(all(np.isfinite(f).all() for f in flows_card)),
+            }
+            out[name]["bound_ms"] = out[name]["gflop_per_flow"] * 1e9 / PEAK_FP32_OPS_S * 1e3
+            log(f"perception {name}: " + json.dumps(out[name]))
+            del card, cpu
+        w = L.random_weights(torch.Generator().manual_seed(3), "cpu")
+        w_card = L.LpipsWeights(*(tuple(t.cuda() for t in ts) for ts in w))
+        a_card, b_card = img1.cuda(), img2.cuda()
+        v_card = float(L.lpips_pair(w_card, a_card, b_card))
+        v_cpu = float(L.lpips_pair(w, img1, img2))
+        out["lpips"] = {"card": v_card, "cpu": v_cpu, "rel_err": abs(v_card - v_cpu) / abs(v_cpu),
+                        "ms_per_pair": KC.cuda_ms(lambda: L.lpips_pair(w_card, a_card, b_card),
+                                                  20)}
+        log("perception lpips: " + json.dumps(out["lpips"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok = (all(out[n]["finite"] and out[n]["max_abs_err_px"] <= FLOW_TOL
+              and out[n]["masks_agree"] >= MASK_AGREE and out[n]["flow_abs_max_px"] > 0
+              for n in nets)
+          and out["lpips"]["rel_err"] <= 1e-4 and np.isfinite(out["lpips"]["card"]))
+    if not ok:
+        raise SystemExit(f"perception phase out of bounds: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def wrapped(cls, name, make):
+    """While open, `cls.name` is `make(original)`."""
+    original = getattr(cls, name)
+    setattr(cls, name, make(original))
+    try:
+        yield
+    finally:
+        setattr(cls, name, original)
+
+
+def flow_phase(wrappers) -> dict:
+    """The command line with the network flow loss on a CoFusion-layout
+    sequence (phase 9); returns its record, with the launches by number of
+    views in `launches_by_views`."""
+    import numpy as np
+    import torch
+
+    from fourdgs_torch import cli, convert
+    from fourdgs_torch import kernel_check as KC
+    from fourdgs_torch.data.synthetic import SyntheticDataset, write_cofusion_format
+    from fourdgs_torch.perception import raft as R
+    from fourdgs_torch.perception.weights_io import save_pytree_npz
+    from fourdgs_torch.slam.runner import SLAM
+
+    tmp = tempfile.mkdtemp(prefix="fourdgs_flow_")
+    cwd = os.getcwd()
+    calls, chunks, views_without_flow = {}, [], []
+    flow_s, last_pairs = [0.0], [0]
+
+    def count_calls(call):
+        def counted(self, uid1, uid2, img1, img2):
+            calls[(uid1, uid2)] = calls.get((uid1, uid2), 0) + 1
+            torch.cuda.synchronize()
+            t = time.time()
+            res = call(self, uid1, uid2, img1, img2)
+            flow_s[0] += time.time() - t
+            return res
+        return counted
+
+    def check_views(flow_arrays):
+        def checked(self, key_opt):
+            pair_slots, fwd, bwd = flow_arrays(self, key_opt)
+            for i, kf in enumerate(key_opt[:len(pair_slots)]):
+                earlier = any(k < kf for k in self.kf_indices)
+                if earlier != (pair_slots[i] >= 0) or (earlier and not bool(fwd[i].abs().any())):
+                    views_without_flow.append(kf)
+            last_pairs[0] = int((pair_slots >= 0).sum())
+            return pair_slots, fwd, bwd
+        return checked
+
+    def per_chunk(map_dynamic):
+        def chunk(self, total_iters, step_after):
+            before = {w: dict(k.launches_by_views) for w, k in wrappers.items()}
+            key_opt = map_dynamic(self, total_iters, step_after)
+            chunks.append({"keyframe": key_opt[0], "window": list(key_opt),
+                           "flow_pairs": last_pairs[0], "iters": total_iters,
+                           "launches_by_views": {w: {v: n - before[w].get(v, 0)
+                                                     for v, n in k.launches_by_views.items()
+                                                     if n - before[w].get(v, 0)}
+                                                 for w, k in wrappers.items()}})
+            return key_opt
+        return chunk
+
+    try:
+        t = time.time()
+        seq = os.path.join(tmp, "seq")
+        synthetic = SyntheticDataset(None, "", KC.bench_dynamic_config(FLOW_FRAMES), device="cuda")
+        write_cofusion_format(synthetic, seq)
+        c = synthetic.config["Dataset"]["Calibration"]
+        del synthetic
+        torch.cuda.empty_cache()
+        cfg = os.path.join(tmp, "synthetic_cofusion_dynamic.yaml")
+        with open(cfg, "w") as f:
+            f.write(f"inherit_from: {os.path.join(HERE, 'configs/rgbd/cofusion/base_config.yaml')}\n"
+                    "Results:\n  save_results: false\n"
+                    f"Dataset:\n  dataset_path: {seq}\n  Calibration:\n"
+                    + "".join(f"    {k}: {c[k]}\n" for k in ("fx", "fy", "cx", "cy", "width",
+                                                            "height"))
+                    + "    depth_scale: 5000.0\n    distorted: false\n"
+                    "Training:\n  dystart: 8\n")
+        os.makedirs(os.path.join(tmp, "pretrained"))
+        raft = R.init_weights(R.RAFT(), torch.Generator().manual_seed(4))
+        save_pytree_npz(os.path.join(tmp, "pretrained", "raft-things.npz"),
+                        convert.flow_params(raft))
+        write_s = time.time() - t
+        os.chdir(tmp)   # where the runner finds pretrained/
+        for k in wrappers.values():
+            k.launches_by_views.clear()
+        with observe_stages(SLAM, wrappers) as seen, \
+                wrapped(R.RaftFlowProvider, "__call__", count_calls), \
+                wrapped(SLAM, "_flow_arrays", check_views), \
+                wrapped(SLAM, "_map_dynamic", per_chunk):
+            metrics = cli.main(["--config", cfg, "--dynamic", "--interval", "5",
+                                "--capacity", str(KC.CAPACITY)])
+        by_views = {name: dict(k.launches_by_views) for name, k in wrappers.items()}
+        slam = seen["slams"][0]
+        t = time.time()
+        ate = slam.eval_ate()["rmse"]
+        rend = slam.eval_rendering()
+        eval_s = time.time() - t
+        masks = [m for *_, fm, bm in slam.flow_cache._cache.values() for m in (fm, bm)]
+        flow_launches = {w: sum(n for ch in chunks if ch["flow_pairs"]
+                                for n in ch["launches_by_views"][w].values()) for w in wrappers}
+        out = {
+            "frames": metrics["n_frames"], "keyframes": list(slam.kf_indices),
+            "deform_init": slam.deform_init, "flow_weight": slam.flow_weight,
+            "provider": type(slam.flow_cache.provider).__name__ if slam.flow_cache else None,
+            "flow_pairs": sorted(slam.flow_cache._cache) if slam.flow_cache else [],
+            "provider_calls": {f"{a},{b}": n for (a, b), n in calls.items()},
+            "views_without_flow": views_without_flow, "chunks": chunks,
+            "flow_view_launches": flow_launches,
+            "ate_rmse_m": ate, "psnr": rend["mean_psnr"], "ssim": rend["mean_ssim"],
+            "consistent_mask_share": float(np.mean([m.mean() for m in masks])) if masks else None,
+            "gaussians": slam.gmap.num_alive,
+            "dynamic_gaussians": int((slam.gmap.dygs & slam.gmap.alive).sum()),
+            "seconds": {"write_sequence": write_s, **{k: v["s"] for k, v in seen["stages"].items()},
+                        "flows": flow_s[0], "eval_after": eval_s, **metrics["phase_s"]},
+            "launches_by_views": by_views, "centre_err_mm": centre_errors_mm(slam),
+        }
+        finite = all(np.isfinite(slam.poses_est[i]).all() for i in slam.poses_est)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("flow: " + json.dumps(out))
+    ok = (out["flow_weight"] == 3.0 and out["provider"] == "RaftFlowProvider"
+          and out["deform_init"] and out["flow_pairs"] and not views_without_flow
+          and set(calls) == set(out["flow_pairs"]) and all(n == 1 for n in calls.values())
+          and min(flow_launches.values()) > 0 and finite)
+    if not ok:
+        raise SystemExit(f"flow phase out of bounds: {out}")
     return out
 
 
@@ -467,11 +739,14 @@ def main() -> int:
         "(the SLAM phase runs the full 1050)")
     slam, frames = KC.sample_map()
     compare = {}
-    for views in VIEWS:
-        compare[views] = r = compare_kernels(slam, views, seed=views)
-        log(f"compare {KC.WIDTH}x{KC.HEIGHT}x{views}: " + json.dumps(r))
+    shapes = [(v, FLOW_VIEWS.get(v, 0)) for v in VIEWS] + list(FLOW_SHAPES)
+    for views, n_flow in shapes:
+        key = views if n_flow == FLOW_VIEWS.get(views, 0) else f"{views}_{n_flow}flow"
+        compare[key] = r = compare_kernels(slam, views, seed=views + n_flow, n_flow=n_flow)
+        log(f"compare {KC.WIDTH}x{KC.HEIGHT}x{views} ({n_flow} flow): " + json.dumps(r))
         if not r["ok"]:
-            raise SystemExit(f"kernel disagrees with its plain version at {views} views: {r['err']}")
+            raise SystemExit(f"kernel disagrees with its plain version at {views} views "
+                             f"({n_flow} flow): {r['err']}")
     record["compare"] = compare
     log(f"phase compare: {time.time() - t:.1f}s")
 
@@ -598,11 +873,32 @@ def main() -> int:
     # the TUM loader, the segmenter, refinement and the artifacts
     t = time.time()
     os.chdir(HERE)   # the config's inherit_from and save_dir are relative to it
-    cli = cli_phase(wrappers)
+    from fourdgs_torch.eval import lpips as L
+
+    lpips_dir = tempfile.mkdtemp(prefix="fourdgs_lpips_")
+    os.environ["FOURDGS_LPIPS_WEIGHTS"] = os.path.join(lpips_dir, "lpips_alex.npz")
+    L.save_weights(os.environ["FOURDGS_LPIPS_WEIGHTS"],
+                   L.random_weights(torch.Generator().manual_seed(5), "cpu"))
+    try:
+        cli = cli_phase(wrappers)
+    finally:
+        del os.environ["FOURDGS_LPIPS_WEIGHTS"]
+        shutil.rmtree(lpips_dir, ignore_errors=True)
     record["cli"] = cli
     log(f"phase cli: {time.time() - t:.1f}s")
 
-    # ---- phase 8: the kernels line; ms, plain_ms and bound_ms are at 10
+    # ---- phase 8: the flow networks and LPIPS, card against CPU
+    t = time.time()
+    record["perception"] = perception_phase()
+    log(f"phase perception: {time.time() - t:.1f}s")
+
+    # ---- phase 9: the command line with the network flow loss
+    t = time.time()
+    flow = flow_phase(wrappers)
+    record["flow"] = flow
+    log(f"phase flow: {time.time() - t:.1f}s")
+
+    # ---- phase 10: the kernels line; ms, plain_ms and bound_ms are at 10
     # views (the full static window), the *_1view, *_2view and *_26view
     # keys at tracking's shape, the static phase's mapping and the full 4D
     # window; max_abs_err over every number of views held
@@ -618,7 +914,10 @@ def main() -> int:
              "launches_cli": sum(cli["launches_by_views"][name].values()),
              "launches_by_views_cli": cli["launches_by_views"][name],
              "launches_by_views_cli_refinement": cli["refinement_by_views"][name],
-             "max_abs_err": max(compare[v]["err"][k] for v in VIEWS for k in err_keys),
+             "launches_flow": sum(flow["launches_by_views"][name].values()),
+             "launches_by_views_flow": flow["launches_by_views"][name],
+             "launches_flow_views_flow": flow["flow_view_launches"][name],
+             "max_abs_err": max(r["err"][k] for r in compare.values() for k in err_keys),
              **{key: compare[10][src] for key, src in timed.items()}, "library_ms": None}
         for v in (1, 2, 26):
             e.update({f"{key}_{v}view": compare[v][src] for key, src in timed.items()})

@@ -16,8 +16,10 @@ Subpackages:
   slam        tracking, mapping (and colour refinement), keyframes, cadence,
               losses, runner
   data        synthetic RGB-D sequence; TUM (and Bonn) and CoFusion loaders
-  perception  synthetic optical flow, the geometric motion segmenter
-  eval        ATE with its trajectory artifacts, rendering metrics
+  perception  RAFT and GMA optical flow, synthetic optical flow,
+              forward-backward masks, .npz weight files, the geometric
+              motion segmenter
+  eval        ATE with its trajectory artifacts, rendering metrics, LPIPS
   io          PLY export, checkpoints
   utils       config (YAML with inherit_from), logging, random draws
 and `cli.py`, the command line (`python -m fourdgs_torch.cli`).

@@ -87,7 +87,8 @@ def main(argv=None) -> dict:
         Log(f"after_opt: {after}", tag="Eval")
         metrics.update({"ate_rmse": ate["rmse"], "psnr_before": before["mean_psnr"],
                         "psnr_after": after["mean_psnr"], "ssim_after": after["mean_ssim"],
-                        "l1_depth_after": after["mean_l1_depth"]})
+                        "l1_depth_after": after["mean_l1_depth"],
+                        "lpips_before": before["mean_lpips"], "lpips_after": after["mean_lpips"]})
     slam.save("final")
     Log(f"Done. metrics={metrics}")
     return metrics

@@ -6,8 +6,9 @@ trajectory and, with `dynamic`, a blob of Gaussians that moves over
 normalized time, with exact motion masks; all drawn from numpy generators
 seeded from the config. Frames are rendered by the port's own rasterizer
 at the ground-truth poses, on the dataset's device, so SLAM on the output
-has a well-defined optimum. `write_tum_format` lays a sequence out as a
-TUM RGB-D recording, for the recorded-data path.
+has a well-defined optimum. `write_tum_format` and `write_cofusion_format`
+lay a sequence out as a TUM RGB-D or a CoFusion recording, for the
+recorded-data path.
 """
 
 from __future__ import annotations
@@ -196,18 +197,46 @@ def write_tum_format(dataset: SyntheticDataset, out_dir: str, depth_scale: float
         img, depth, T_cw, _ = dataset[i]
         ts = f"{i / 30.0 + 1000.0:.6f}"
         rgb_rel, depth_rel = f"rgb/{i:05d}.png", f"depth/{i:05d}.png"
-        Image.fromarray((np.transpose(img, (1, 2, 0)) * 255).astype(np.uint8)).save(
-            os.path.join(out_dir, rgb_rel))
-        d16 = np.clip(depth * depth_scale, 0, 65535).astype(np.uint16)
-        Image.fromarray(d16).save(os.path.join(out_dir, depth_rel))
+        _write_rgbd(img, depth, os.path.join(out_dir, rgb_rel),
+                    os.path.join(out_dir, depth_rel), depth_scale)
         rgb_lines.append(f"{ts} {rgb_rel}")
         depth_lines.append(f"{ts} {depth_rel}")
-        T_wc = np.linalg.inv(T_cw)
-        q = rotmat_to_quat(torch.as_tensor(T_wc[:3, :3], dtype=torch.float32)).numpy()
-        tx, ty, tz = T_wc[:3, 3]
-        gt_lines.append(f"{ts} {tx:.6f} {ty:.6f} {tz:.6f} {q[1]:.6f} {q[2]:.6f} "
-                        f"{q[3]:.6f} {q[0]:.6f}")
+        gt_lines.append(f"{ts} {_pose_line(T_cw)}")
     for name, lines in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines),
                         ("groundtruth.txt", gt_lines)):
         with open(os.path.join(out_dir, name), "w") as f:
             f.write("\n".join(lines) + "\n")
+
+
+def write_cofusion_format(dataset: SyntheticDataset, out_dir: str,
+                          depth_scale: float = 5000.0):
+    """Write the sequence in CoFusion layout: `colour/` and `depth/` PNGs
+    (as `write_tum_format` writes them), `mask_colour/` with the exact
+    motion mask (255 on dynamic pixels) and `trajectories/gt-cam-0.txt`
+    (index tx ty tz qx qy qz qw of camera-to-world)."""
+    for d in ("colour", "depth", "mask_colour", "trajectories"):
+        os.makedirs(os.path.join(out_dir, d), exist_ok=True)
+    lines = []
+    for i in range(len(dataset)):
+        img, depth, T_cw, motion = dataset[i]
+        _write_rgbd(img, depth, os.path.join(out_dir, "colour", f"{i:05d}.png"),
+                    os.path.join(out_dir, "depth", f"{i:05d}.png"), depth_scale)
+        Image.fromarray((~motion).astype(np.uint8) * 255).save(
+            os.path.join(out_dir, "mask_colour", f"{i:05d}.png"))
+        lines.append(f"{i} {_pose_line(T_cw)}")
+    with open(os.path.join(out_dir, "trajectories", "gt-cam-0.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _write_rgbd(img, depth, color_path: str, depth_path: str, depth_scale: float):
+    """Colour as 8-bit RGB, depth as 16-bit at `depth_scale` units per metre."""
+    Image.fromarray((np.transpose(img, (1, 2, 0)) * 255).astype(np.uint8)).save(color_path)
+    Image.fromarray(np.clip(depth * depth_scale, 0, 65535).astype(np.uint16)).save(depth_path)
+
+
+def _pose_line(T_cw) -> str:
+    """tx ty tz qx qy qz qw of the camera-to-world pose."""
+    T_wc = np.linalg.inv(T_cw)
+    q = rotmat_to_quat(torch.as_tensor(T_wc[:3, :3], dtype=torch.float32)).numpy()
+    tx, ty, tz = T_wc[:3, 3]
+    return f"{tx:.6f} {ty:.6f} {tz:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f} {q[0]:.6f}"

@@ -1,10 +1,10 @@
 """Rendering-quality evaluation over frames (port of
 fourdgs/eval/rendering.py): PSNR masked to valid (and, in static mode,
-static) pixels, SSIM and L1 depth, averaged, written to
+static) pixels, SSIM, LPIPS and L1 depth, averaged, written to
 `<save_dir>/psnr/<label>/final_result.json` with PNG dumps of renders,
 ground truth and novel views under `<save_dir>/renders/<label>/`. LPIPS
-needs pretrained AlexNet features that are not ported yet, so
-`mean_lpips` is None."""
+(eval/lpips.py) needs AlexNet weights: `mean_lpips` is None when
+`lpips.load_weights` finds no file."""
 
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from fourdgs_torch.eval.lpips import load_weights, lpips_pair
 from fourdgs_torch.ops.image import psnr, ssim
 
 
@@ -32,7 +33,8 @@ def eval_rendering(render_fn, dataset, frame_ids: list[int], save_dir: str | Non
     With `save_dir`, the metrics are written there and frames dumped where
     `dump_interval` is falsy or (idx + 1) % dump_interval == 0 or idx == 0,
     with the novel view of `novel_render_fn` when given."""
-    psnrs, ssims, l1ds = [], [], []
+    psnrs, ssims, lpipss, l1ds = [], [], [], []
+    lpips_w = False   # loaded at the first frame, on its device; None: no weights file
     dump_dir = None
     if save_dir:
         dump_dir = os.path.join(save_dir, "renders", label)
@@ -54,6 +56,10 @@ def eval_rendering(render_fn, dataset, frame_ids: list[int], save_dir: str | Non
         img = torch.clamp(img, 0, 1)
         psnrs.append(float(psnr(img, gt_image, mask)))
         ssims.append(float(ssim(img, gt_image)))
+        if lpips_w is False:
+            lpips_w = load_weights(device=dev)
+        if lpips_w is not None:
+            lpipss.append(float(lpips_pair(lpips_w, img, torch.clamp(gt_image, 0, 1))))
         if gt_depth is not None:
             gtd = torch.as_tensor(gt_depth, device=dev)
             valid = (gtd > 0.01) & motion
@@ -62,7 +68,7 @@ def eval_rendering(render_fn, dataset, frame_ids: list[int], save_dir: str | Non
     out = {
         "mean_psnr": float(np.mean(psnrs)) if psnrs else None,
         "mean_ssim": float(np.mean(ssims)) if ssims else None,
-        "mean_lpips": None,
+        "mean_lpips": float(np.mean(lpipss)) if lpipss else None,
         "mean_l1_depth": float(np.mean(l1ds)) if l1ds else None,
         "frames": len(psnrs),
     }

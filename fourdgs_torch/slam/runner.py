@@ -18,8 +18,11 @@ keyframe from `dystart` on, Gaussians spawn on its dynamic pixels
 warmed up on that keyframe; every later keyframe phase is one
 `map_chunk_dynamic` with flow losses against the closest earlier
 keyframe, followed by one densify check. Flow comes from the exact
-synthetic provider; on recorded sequences, whose flow needs RAFT (not
-ported yet), the flow loss is off.
+synthetic provider on the synthetic sequence; on recorded sequences from
+RAFT, or GMA with `Training.flow_model: gma`, run on the runner's device
+on the colour images of the two keyframes (the keyframe store's 8-bit
+copies, exact for 8-bit recordings), when a weights file is found
+(perception/flow.py `network_weights`); without one the flow loss is off.
 
 Recorded sequences (`tum`, which also reads the Bonn layout, and
 `CoFusion`) with `model_params.dynamic_model` get the geometric motion
@@ -158,15 +161,19 @@ class SLAM:
 
             self.flow_cache = FlowCache(SyntheticFlowProvider(self.dataset))
         elif dynamic:
-            from fourdgs_torch.perception.flow import network_weights
+            from fourdgs_torch.perception.flow import FlowCache, network_weights
+            from fourdgs_torch.perception.gma import GmaFlowProvider
+            from fourdgs_torch.perception.raft import RaftFlowProvider
 
             flow_model = str(tr.get("flow_model", "raft")).lower()
             weights = network_weights(flow_model)
-            if weights is not None:
-                raise NotImplementedError(f"{flow_model.upper()} is not ported yet (ROADMAP "
-                                          f"item 15); found weights {weights}")
-            Log(f"{flow_model.upper()} weights not found; flow loss disabled")
-            self.flow_weight = 0.0
+            if weights is None:
+                Log(f"{flow_model.upper()} weights not found; flow loss disabled")
+                self.flow_weight = 0.0
+            else:
+                provider = GmaFlowProvider if flow_model == "gma" else RaftFlowProvider
+                self.flow_cache = FlowCache(provider(weights, device=self.device))
+                Log(f"{flow_model.upper()} flow from {weights}")
         self.max_capacity = max_capacity
         self.raster = RasterConfig()
         self.track_cfg = TrackingConfig(
@@ -448,7 +455,8 @@ class SLAM:
 
     def _flow_arrays(self, key_opt: list[int]):
         """Per window view: the slot of the closest earlier keyframe (-1:
-        none) and the flows between the two, (Vw, 2, H, W) each."""
+        none) and the flows between the two, (Vw, 2, H, W) each, computed
+        from the two keyframes' stored colour images."""
         vw = self.map_cfg.num_window_views
         h, w = self.intr.height, self.intr.width
         pair_slots = np.full(vw, -1, np.int64)
@@ -460,7 +468,8 @@ class SLAM:
                 if not earlier:
                     continue
                 closest = max(earlier)
-                fwd[i], bwd[i] = self.flow_cache.get(kf, closest)
+                images = kfs.fetch_images(self.store, [self.kf_slot[kf], self.kf_slot[closest]])
+                fwd[i], bwd[i], _, _ = self.flow_cache.get(kf, closest, images[0], images[1])
                 pair_slots[i] = self.kf_slot[closest]
         return (pair_slots, torch.as_tensor(fwd, device=self.device),
                 torch.as_tensor(bwd, device=self.device))

@@ -64,8 +64,8 @@ def test_synthetic_flows_match(datasets):
     jd_, td_ = datasets
     jc, tc = JFlowCache(JFlow(jd_)), FlowCache(SyntheticFlowProvider(td_))
     for a, b in ((3, 1), (5, 0)):
-        jf, jb, _, _ = jc.get(a, b)
-        tf, tb = tc.get(a, b)
+        jf, jb, jfm, jbm = jc.get(a, b)
+        tf, tb, tfm, tbm = tc.get(a, b)
         # both flows come from each package's own depth render
         _, jdep, _, _ = jd_[a]
         _, tdep, _, _ = td_[a]
@@ -81,6 +81,9 @@ def test_synthetic_flows_match(datasets):
     tc2 = FlowCache(SyntheticFlowProvider(jd_))
     np.testing.assert_array_equal(tc2.get(3, 1)[0], jc.get(3, 1)[0])
     np.testing.assert_array_equal(tc2.get(3, 1)[1], jc.get(3, 1)[1])
+    # with the forward-backward consistency masks of the same flows
+    np.testing.assert_array_equal(tc2.get(3, 1)[2], jc.get(3, 1)[2])
+    np.testing.assert_array_equal(tc2.get(3, 1)[3], jc.get(3, 1)[3])
 
 
 def test_dynamic_losses_match():
