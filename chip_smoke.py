@@ -58,14 +58,33 @@ Phases, one line each, in order (any failure exits non-zero):
               sequence written in CoFusion layout (the blob's exact masks in
               mask_colour/, so the deformation initialises at dystart 8),
               with a config inheriting configs/rgbd/cofusion/base_config.yaml
-              and a seeded pretrained/raft-things.npz in its (temporary)
-              working directory: RAFT on the card supervises 4D mapping.
-              Held: flow weight 3, every window view with an earlier
-              keyframe given its flow, each pair computed once, compositor
-              launches in 4D chunks with flow views, finite poses; printed,
-              not held (seeded weights give no real supervision): ATE,
-              PSNR, seconds per stage, the share of consistent mask pixels
- 10. kernels  one JSON line: per kernel its launches in the SLAM phase, in
+              and a seeded pretrained/raft-things.npz and a seeded
+              full-width pretrained/yolov9e-seg.npz in its (temporary)
+              working directory: RAFT on the card supervises 4D mapping, and
+              YOLOv9e-seg on the card segments each frame (mask_colour/
+              then overrides its masks, as in the reference). Held: flow
+              weight 3, every window view with an earlier keyframe given its
+              flow, each pair computed once, keyframes 0, 5, 8, 13 and
+              FLOW_VIEW_LAUNCHES compositor launches per kernel in 4D
+              chunks with flow views, finite poses; the runner's segmenter
+              the port's Yolov9SegSegmenter, called once per frame, its
+              forward on CUDA; printed, not held (seeded weights give no
+              real supervision): ATE, PSNR, seconds per stage, the share of
+              consistent mask pixels
+ 10. segmentation  YOLOv9e-seg at the published widths (60.5 M parameters,
+              weights seeded from a torch.Generator) through
+              Yolov9SegSegmenter on the card and on the CPU, on a 640x480
+              frame of the dynamic synthetic sequence: boxes, scores, mask
+              coefficients and prototypes card against CPU within SEG_TOL of
+              each output's largest magnitude, and the masks on at least
+              SEG_MASK_AGREE of pixels at a conf set between the SEG_CANDIDATES-th
+              and the next score of the configured classes (person, chair),
+              so NMS and the mask composition run on that many detections;
+              with ms per frame (the segmenter's call, at that conf and at
+              0.25), ms per forward (CUDA events), device time, idle share
+              and launches per forward (torch.profiler), and GFLOP per frame
+              (convolutions, counted on the meta device) with its bound
+ 11. kernels  one JSON line: per kernel its launches in the SLAM phase, in
               the dynamic phase, in the cli phase and in the flow phase (in
               all, by number of views, and the cli phase's refinement by
               number of views), largest error against its plain version,
@@ -107,6 +126,14 @@ CLI_FRAMES = 44   # keyframes 0, 5, 8 (dystart), 13, ..., 43: ten, for refinemen
 FLOW_FRAMES = 14
 FLOW_TOL = 5e-2   # px, card against CPU, RAFT and GMA flows at 640x480
 MASK_AGREE = 0.999
+# 200 iterations of each of the flow phase's two 4D chunks with flow pairs
+FLOW_VIEW_LAUNCHES = 400
+SEG_TOL = 1e-3    # of each output's largest magnitude, YOLOv9e-seg card against CPU
+SEG_MASK_AGREE = 0.9999
+SEG_CANDIDATES = 40   # detections of the configured classes the segmentation phase keeps
+# added to the seeded person-class bias of each level in the segmentation
+# phase: seeded class scores peak on a few classes, person rarely among them
+SEG_PERSON_RAISE = 1.0
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_OPS_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # per (pixel, pair) operation counts of the kernels' arithmetic
@@ -584,6 +611,8 @@ def flow_phase(wrappers) -> dict:
     from fourdgs_torch import kernel_check as KC
     from fourdgs_torch.data.synthetic import SyntheticDataset, write_cofusion_format
     from fourdgs_torch.perception import raft as R
+    from fourdgs_torch.perception import yolov9 as Y
+    from fourdgs_torch.perception.segmentation import Yolov9SegSegmenter
     from fourdgs_torch.perception.weights_io import save_pytree_npz
     from fourdgs_torch.slam.runner import SLAM
 
@@ -591,6 +620,22 @@ def flow_phase(wrappers) -> dict:
     cwd = os.getcwd()
     calls, chunks, views_without_flow = {}, [], []
     flow_s, last_pairs = [0.0], [0]
+    seg_calls, seg_devices, seg_s = [0], set(), [0.0]
+
+    def count_segments(call):
+        def counted(self, img_u8, depth=None):
+            seg_calls[0] += 1
+            t = time.time()
+            res = call(self, img_u8, depth)
+            seg_s[0] += time.time() - t
+            return res
+        return counted
+
+    def record_device(forward):
+        def recorded(self, x):
+            seg_devices.add(x.device.type)
+            return forward(self, x)
+        return recorded
 
     def count_calls(call):
         def counted(self, uid1, uid2, img1, img2):
@@ -647,12 +692,18 @@ def flow_phase(wrappers) -> dict:
         raft = R.init_weights(R.RAFT(), torch.Generator().manual_seed(4))
         save_pytree_npz(os.path.join(tmp, "pretrained", "raft-things.npz"),
                         convert.flow_params(raft))
+        yolo = Y.init_weights(Y.Yolov9SegNet(Y.YOLOV9E_SEG), torch.Generator().manual_seed(7))
+        save_pytree_npz(os.path.join(tmp, "pretrained", "yolov9e-seg.npz"),
+                        convert.yolo_params(yolo), meta={"cfg": Y.YOLOV9E_SEG})
+        del yolo
         write_s = time.time() - t
         os.chdir(tmp)   # where the runner finds pretrained/
         for k in wrappers.values():
             k.launches_by_views.clear()
         with observe_stages(SLAM, wrappers) as seen, \
                 wrapped(R.RaftFlowProvider, "__call__", count_calls), \
+                wrapped(Yolov9SegSegmenter, "__call__", count_segments), \
+                wrapped(Y.Yolov9Seg, "forward", record_device), \
                 wrapped(SLAM, "_flow_arrays", check_views), \
                 wrapped(SLAM, "_map_dynamic", per_chunk):
             metrics = cli.main(["--config", cfg, "--dynamic", "--interval", "5",
@@ -681,7 +732,13 @@ def flow_phase(wrappers) -> dict:
             "seconds": {"write_sequence": write_s, **{k: v["s"] for k, v in seen["stages"].items()},
                         "flows": flow_s[0], "eval_after": eval_s, **metrics["phase_s"]},
             "launches_by_views": by_views, "centre_err_mm": centre_errors_mm(slam),
+            "segmenter": type(slam.dataset.mask_fn).__name__, "segmenter_calls": seg_calls[0],
+            "segmenter_forward_devices": sorted(seg_devices),
+            "segmenter_s_per_frame": seg_s[0] / max(seg_calls[0], 1),
+            "yolo_dynamic_px_per_frame": [int(slam.dataset.dynamic_masks[i].sum())
+                                          for i in sorted(slam.dataset.dynamic_masks)],
         }
+        out["seconds"]["segmentation"] = seg_s[0]
         finite = all(np.isfinite(slam.poses_est[i]).all() for i in slam.poses_est)
     finally:
         os.chdir(cwd)
@@ -690,9 +747,135 @@ def flow_phase(wrappers) -> dict:
     ok = (out["flow_weight"] == 3.0 and out["provider"] == "RaftFlowProvider"
           and out["deform_init"] and out["flow_pairs"] and not views_without_flow
           and set(calls) == set(out["flow_pairs"]) and all(n == 1 for n in calls.values())
-          and min(flow_launches.values()) > 0 and finite)
+          and out["keyframes"] == [0, 5, 8, 13]
+          and all(n == FLOW_VIEW_LAUNCHES for n in flow_launches.values()) and finite
+          and out["segmenter"] == "Yolov9SegSegmenter" and seg_calls[0] == out["frames"]
+          and len(out["yolo_dynamic_px_per_frame"]) == out["frames"]
+          and out["segmenter_forward_devices"] == ["cuda"])
     if not ok:
         raise SystemExit(f"flow phase out of bounds: {out}")
+    return out
+
+
+def yolo_flops(h: int, w: int) -> float:
+    """Float operations of one YOLOv9e-seg forward at h x w: its
+    convolutions and the prototypes' transposed convolution, counted from
+    their shapes on the meta device (two per multiply-add)."""
+    import torch
+
+    from fourdgs_torch.perception import yolov9 as Y
+
+    total = [0.0]
+
+    def conv(m, inp, out):
+        total[0] += 2.0 * out.numel() * m.weight[0].numel()
+
+    def transposed(m, inp, out):
+        total[0] += 2.0 * inp[0].numel() * m.weight[0].numel()
+
+    with torch.device("meta"):
+        net = Y.Yolov9SegNet(Y.YOLOV9E_SEG)
+    for m in net.modules():
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            m.register_forward_hook(transposed)
+        elif isinstance(m, torch.nn.Conv2d):
+            m.register_forward_hook(conv)
+    with torch.no_grad():
+        net(torch.zeros(1, 3, h, w, device="meta"))
+    return total[0]
+
+
+def segmentation_phase() -> dict:
+    """YOLOv9e-seg (phase 10) through the segmenter on the card and on the
+    CPU, with the same seeded weights, on a 640x480 frame of the dynamic
+    synthetic sequence."""
+    import numpy as np
+    import torch
+
+    from fourdgs_torch import convert
+    from fourdgs_torch import kernel_check as KC
+    from fourdgs_torch.data.synthetic import SyntheticDataset
+    from fourdgs_torch.perception import yolov9 as Y
+    from fourdgs_torch.perception.segmentation import make_segmenter
+    from fourdgs_torch.perception.weights_io import save_pytree_npz
+
+    uid = 8   # dystart of the flow phase's sequence, the blob in view
+    ds = SyntheticDataset(None, "", KC.bench_dynamic_config(FLOW_FRAMES), device="cuda")
+    img_u8 = np.ascontiguousarray(
+        (np.clip(np.asarray(ds[uid][0]), 0, 1) * 255).round().astype(np.uint8).transpose(1, 2, 0))
+    del ds
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="fourdgs_segmentation_")
+    try:
+        path = os.path.join(tmp, "yolov9e-seg.npz")
+        net = Y.init_weights(Y.Yolov9SegNet(Y.YOLOV9E_SEG), torch.Generator().manual_seed(6))
+        with torch.no_grad():   # seeded scores peak on a few classes; person made likelier
+            for branch in net.model[-1].cv3:
+                branch[-1].bias[0] += SEG_PERSON_RAISE
+        save_pytree_npz(path, convert.yolo_params(net), meta={"cfg": Y.YOLOV9E_SEG})
+        n_params = sum(p.numel() for p in net.parameters())
+        del net
+        cfg = {"Dataset": {"yolo_weights": path, "seg_chair": True}}
+        card, cpu = (make_segmenter(cfg, None, d) for d in ("cuda", "cpu"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    chw = img_u8.astype(np.float32).transpose(2, 0, 1) / 255.0
+    lb, _, _ = Y.letterbox(chw, card.model.imgsz)
+    outs_card = card.model.outputs(lb)
+    t = time.time()
+    outs_cpu = cpu.model.outputs(lb)
+    cpu_s = time.time() - t
+    names = ("boxes", "scores", "mask_coefs", "protos")
+    errs = {n: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+            for n, a, b in zip(names, outs_card, outs_cpu)}
+    # conf between the SEG_CANDIDATES-th and the next score of the
+    # configured classes: that many detections go into NMS
+    scores = outs_cpu[1]
+    ours = np.isin(scores.argmax(1), card.classes)
+    ranked = np.sort(scores.max(1)[ours])[::-1]
+    conf = float((ranked[SEG_CANDIDATES - 1] + ranked[SEG_CANDIDATES]) / 2)
+    sel = ours & (scores.max(1) >= conf)
+    off = (scores.argmax(1)[sel, None] * 4096.0).astype(np.float32)
+    kept = len(Y.nms_numpy(outs_cpu[0][sel] + off, scores.max(1)[sel]))
+    masks = {}
+    for name, seg in (("card", card), ("cpu", cpu)):
+        seg.conf = conf
+        masks[name] = seg(img_u8)
+
+    def per_frame_ms(seg, frames=10):
+        seg(img_u8)
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(frames):
+            seg(img_u8)
+        torch.cuda.synchronize()
+        return (time.time() - t) * 1e3 / frames
+
+    ms_low = per_frame_ms(card)
+    card.conf = 0.25
+    ms_default = per_frame_ms(card)
+    x = torch.as_tensor(lb, device="cuda")[None]
+    fwd_ms = KC.cuda_ms(lambda: card.model.forward(x), 10)
+    gflop = yolo_flops(*lb.shape[1:]) / 1e9
+    out = {
+        "frame": uid, "parameters": n_params, "letterbox": list(lb.shape[1:]),
+        "anchors": int(scores.shape[0]), "classes": card.classes,
+        "rel_err": errs, "conf": conf, "candidates": int(sel.sum()), "kept_after_nms": kept,
+        "detections_at_0.25": int((ours & (scores.max(1) >= 0.25)).sum()),
+        "mask_share": float(masks["card"].mean()),
+        "masks_agree": float((masks["card"] == masks["cpu"]).mean()),
+        "ms_per_frame": ms_low, "ms_per_frame_conf_0.25": ms_default,
+        "ms_per_forward": fwd_ms,
+        "profile": _device_profile(lambda: card.model.forward(x), 1, fwd_ms),
+        "gflop_per_frame": gflop, "bound_ms": gflop * 1e9 / PEAK_FP32_OPS_S * 1e3,
+        "cpu_s_per_forward": cpu_s,
+        "finite": bool(all(np.isfinite(o).all() for o in outs_card)),
+    }
+    log("segmentation: " + json.dumps(out))
+    ok = (out["finite"] and max(errs.values()) <= SEG_TOL and out["masks_agree"] >= SEG_MASK_AGREE
+          and out["candidates"] == SEG_CANDIDATES and out["mask_share"] > 0)
+    if not ok:
+        raise SystemExit(f"segmentation phase out of bounds: {out}")
     return out
 
 
@@ -898,7 +1081,12 @@ def main() -> int:
     record["flow"] = flow
     log(f"phase flow: {time.time() - t:.1f}s")
 
-    # ---- phase 10: the kernels line; ms, plain_ms and bound_ms are at 10
+    # ---- phase 10: YOLOv9e-seg, card against CPU
+    t = time.time()
+    record["segmentation"] = segmentation_phase()
+    log(f"phase segmentation: {time.time() - t:.1f}s")
+
+    # ---- phase 11: the kernels line; ms, plain_ms and bound_ms are at 10
     # views (the full static window), the *_1view, *_2view and *_26view
     # keys at tracking's shape, the static phase's mapping and the full 4D
     # window; max_abs_err over every number of views held

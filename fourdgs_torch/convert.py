@@ -10,6 +10,8 @@ arrays that rebuild the reference's named tuples field by field. The
 flow networks' weights go between the JAX parameter pytree of RAFT and
 GMA and the port's state dict (`flow_state_dict`, `flow_params`), and
 LPIPS's between the two packages' `LpipsWeights` (`lpips_from_arrays`).
+YOLOv9-seg's go between the reference's flat `model.<i>.…` dict and the
+port's state dict (`yolo_params`, `yolo_state_dict`).
 """
 
 from __future__ import annotations
@@ -263,3 +265,24 @@ def lpips_from_arrays(obj, device):
 
     return LpipsWeights(*(tuple(_t(a, device) for a in _get(obj, f))
                           for f in LpipsWeights._fields))
+
+
+# ---------------------------------------------------------------------------
+# YOLOv9-seg: the reference's flat `model.<i>.…` dict (what its
+# `build_model` and `convert_state_dict` take) and the port's state dict
+# ---------------------------------------------------------------------------
+
+
+def yolo_params(model: torch.nn.Module) -> dict[str, np.ndarray]:
+    """The flat `model.<i>.…` dict of numpy arrays of the port's
+    `Yolov9SegNet`, batch-norm step counts dropped as `convert_state_dict`
+    drops them: `save_pytree_npz` of it (with the layer list as meta
+    `cfg`) is a weights file of either package."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def yolo_state_dict(params, device) -> dict[str, torch.Tensor]:
+    """Inverse of `yolo_params`: the state dict, on `device`, of a flat
+    `model.<i>.…` dict of arrays."""
+    return {k: _t(v, device) for k, v in params.items()}

@@ -1,29 +1,51 @@
 """Dynamic-object segmentation of recorded frames (port of the
-`NullSegmenter`, `MotionSegmenter` and `make_segmenter` of
-fourdgs/perception/segmentation.py).
+`NullSegmenter`, `Yolov9SegSegmenter`, `MotionSegmenter` and
+`make_segmenter` of fourdgs/perception/segmentation.py).
 
 A segmenter maps an (H, W, 3) uint8 frame (and its depth) to an (H, W)
-bool DYNAMIC mask. `MotionSegmenter` is the geometric one: the previous
-frame is warped into the current one through the depth and the pose
-predicted from tracked poses, and coherent high-residual regions (5x5 box
-filtered, thresholded, 4-connected regions of at least `min_region`
-pixels) are dynamic. The learned YOLOv9 segmenter is not ported yet:
-`make_segmenter` refuses a config whose weights file exists rather than
-segment it by geometry.
+bool DYNAMIC mask. `Yolov9SegSegmenter` is the learned one: the union of
+YOLOv9-seg's instance masks of the configured COCO classes (person 0,
+chair 56, clock 74, teddy bear 77), the network on the device
+(perception/yolov9.py). `MotionSegmenter` is the geometric one, taken
+when no YOLOv9 weights file is found: the previous frame is warped into
+the current one through the depth and the pose predicted from tracked
+poses, and coherent high-residual regions (5x5 box filtered,
+thresholded, 4-connected regions of at least `min_region` pixels) are
+dynamic. The reference's `UltralyticsSegmenter`, which runs the
+`ultralytics` package's network, is not ported.
 """
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 from scipy.ndimage import label
+
+from fourdgs_torch.perception.yolov9 import load_yolov9, weights_file
+
+PERSON, CHAIR, CLOCK, TEDDY = 0, 56, 74, 77
+
 
 class NullSegmenter:
     """Everything static."""
 
     def __call__(self, img_u8: np.ndarray, depth: np.ndarray | None = None) -> np.ndarray:
         return np.zeros(img_u8.shape[:2], bool)
+
+
+class Yolov9SegSegmenter:
+    """The union of the YOLOv9-seg masks of `classes` at score >= conf;
+    the network runs on `device` (the card unless "cpu"), the depth is
+    not used. Raises if the weights do not load."""
+
+    def __init__(self, weights: str = "pretrained/yolov9e-seg.pt", classes=(PERSON,),
+                 conf: float = 0.25, device=None):
+        self.model = load_yolov9(weights, device=device)
+        self.classes = list(classes)
+        self.conf = conf
+
+    def __call__(self, img_u8: np.ndarray, depth: np.ndarray | None = None) -> np.ndarray:
+        chw = img_u8[..., :3].astype(np.float32).transpose(2, 0, 1) / 255.0
+        return self.model.segment(chw, self.classes, conf=self.conf)
 
 
 def region_filter(mask: np.ndarray, min_region: int) -> np.ndarray:
@@ -95,12 +117,17 @@ class MotionSegmenter:
         return np.zeros(img_u8.shape[:2], bool)
 
 
-def make_segmenter(config, intrinsics):
-    """The segmenter of a config: `MotionSegmenter` while the YOLOv9 weights
-    (`Dataset.yolo_weights`) are absent. With the weights present it
-    raises: the learned segmenter is not ported yet."""
-    weights = config["Dataset"].get("yolo_weights", "pretrained/yolov9e-seg.pt")
-    if os.path.exists(weights):
-        raise NotImplementedError(
-            f"YOLOv9 is not ported yet (ROADMAP item 15); found weights {weights}")
+def make_segmenter(config, intrinsics, device=None):
+    """The segmenter of a config: `Yolov9SegSegmenter` on `device` when
+    the weights file `Dataset.yolo_weights` (default
+    pretrained/yolov9e-seg.pt) or its sibling `.npz` exists, for the
+    classes person and those of `seg_chair`/`seg_clock`/`seg_teddy`;
+    `MotionSegmenter` otherwise. A file that is found but does not load
+    raises (the reference falls back instead, ROADMAP §3)."""
+    ds = config["Dataset"]
+    classes = [PERSON] + [c for key, c in (("seg_chair", CHAIR), ("seg_clock", CLOCK),
+                                           ("seg_teddy", TEDDY)) if ds.get(key)]
+    weights = ds.get("yolo_weights", "pretrained/yolov9e-seg.pt")
+    if weights_file(weights) is not None:
+        return Yolov9SegSegmenter(weights, classes=tuple(classes), device=device)
     return MotionSegmenter(intrinsics)

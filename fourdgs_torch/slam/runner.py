@@ -25,7 +25,9 @@ copies, exact for 8-bit recordings), when a weights file is found
 (perception/flow.py `network_weights`); without one the flow loss is off.
 
 Recorded sequences (`tum`, which also reads the Bonn layout, and
-`CoFusion`) with `model_params.dynamic_model` get the geometric motion
+`CoFusion`) with `model_params.dynamic_model` get a segmenter
+(perception/segmentation.py `make_segmenter`): YOLOv9-seg on the
+runner's device when its weights file is found, else the geometric motion
 segmenter, fed the constant-velocity prediction from the tracked poses of
 the two frames before the one it segments. Frames are read, and so
 segmented, on the main thread in order: each mask is the same from run to
@@ -141,8 +143,11 @@ class SLAM:
                 "model_params", {}).get("dynamic_model", True):
             from fourdgs_torch.perception.segmentation import make_segmenter
 
-            seg = make_segmenter(config, self.intr)
-            seg.pose_provider = self._predict_pose
+            seg = make_segmenter(config, self.intr, self.device)
+            if getattr(seg, "pose_provider", False) is None:
+                # the geometric segmenter: the constant-velocity prediction
+                # from tracked poses, never the dataset's ground truth
+                seg.pose_provider = self._predict_pose
             self.dataset.mask_fn = seg
         n_frames = len(self.dataset)
         self.n_frames = n_frames if max_frames is None else min(n_frames, max_frames)

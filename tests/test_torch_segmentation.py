@@ -3,20 +3,28 @@ fed the same frames and the same pose sequence, both give identical masks
 (the port's runner feeds it deterministically, ROADMAP §3); its region
 filter keeps 4-connected regions exactly as fourdgs/native's union-find
 does; `make_segmenter` takes the geometric route only without YOLOv9
-weights, and refuses with them."""
+weights, and with them (a `.npz` beside the configured `.pt`, or the
+`.pt` itself) the YOLOv9 segmenter; a corrupt weights file raises."""
+
+import pickle
 
 import numpy as np
 import pytest
+import torch
 
 from fourdgs.native import region_filter as j_region_filter
 from fourdgs.perception.segmentation import MotionSegmenter as JMotionSegmenter
 from fourdgs.slam.camera import Intrinsics as JIntrinsics
+from fourdgs_torch import convert
+from fourdgs_torch.perception import yolov9 as Y
 from fourdgs_torch.perception.segmentation import (
     MotionSegmenter,
     NullSegmenter,
+    Yolov9SegSegmenter,
     make_segmenter,
     region_filter,
 )
+from fourdgs_torch.perception.weights_io import save_pytree_npz
 from fourdgs_torch.slam.camera import Intrinsics
 
 W, H = 96, 72
@@ -87,10 +95,59 @@ def test_region_filter_is_four_connected():
     np.testing.assert_array_equal(region_filter(mask, 150), j_region_filter(mask, 150))
 
 
-def test_make_segmenter_without_and_with_weights(tmp_path):
-    cfg = {"Dataset": {"yolo_weights": str(tmp_path / "yolov9e-seg.pt")}}
-    seg = make_segmenter(cfg, T_INTR)
+TINY_SEG = {"nc": 2, "backbone": [[-1, 1, "Conv", [8, 3, 2]], [-1, 1, "Conv", [16, 3, 2]],
+                                 [-1, 1, "ADown", [16]]],
+            "head": [[[1, 2], 1, "Segment", [2, 4, 16]]]}
+
+
+class _FakeUltralyticsModel(torch.nn.Module):
+    """Stands in for the object an ultralytics `.pt` stores: `.yaml`,
+    `.float()` and a state dict under `model.<i>.`, with the batch-norm
+    step counts and the DFL's fixed weights such a checkpoint carries."""
+
+    def __init__(self, cfg, net):
+        super().__init__()
+        self.yaml = cfg
+        self.model = net.model
+
+    def state_dict(self, *a, **k):
+        sd = super().state_dict(*a, **k)
+        sd["model.0.bn.num_batches_tracked"] = torch.tensor(0)
+        sd["model.3.dfl.conv.weight"] = torch.arange(16.0).reshape(1, 16, 1, 1)
+        return sd
+
+
+@pytest.mark.parametrize("weights", ["npz", "pt", "corrupt"])
+def test_make_segmenter_without_and_with_weights(tmp_path, weights):
+    pt = tmp_path / "yolov9e-seg.pt"
+    cfg = {"Dataset": {"yolo_weights": str(pt), "seg_chair": True}}
+    seg = make_segmenter(cfg, T_INTR, "cpu")
     assert isinstance(seg, MotionSegmenter) and seg.pose_provider is None
-    (tmp_path / "yolov9e-seg.pt").write_bytes(b"weights")
-    with pytest.raises(NotImplementedError, match="YOLOv9 is not ported yet"):
-        make_segmenter(cfg, T_INTR)
+    net = Y.init_weights(Y.Yolov9SegNet(TINY_SEG), torch.Generator().manual_seed(0))
+    if weights == "corrupt":
+        pt.write_bytes(b"weights")
+        with pytest.raises(pickle.UnpicklingError):
+            make_segmenter(cfg, T_INTR, "cpu")
+        return
+    if weights == "npz":     # found beside the configured .pt
+        save_pytree_npz(str(tmp_path / "yolov9e-seg.npz"), convert.yolo_params(net),
+                        meta={"cfg": TINY_SEG})
+    else:
+        torch.save({"model": _FakeUltralyticsModel(TINY_SEG, net)}, pt)
+    seg = make_segmenter(cfg, T_INTR, "cpu")
+    assert isinstance(seg, Yolov9SegSegmenter) and not hasattr(seg, "pose_provider")
+    assert seg.classes == [0, 56] and seg.conf == 0.25
+    assert seg.model.device.type == "cpu"
+    for k, v in convert.yolo_params(net).items():
+        np.testing.assert_array_equal(seg.model.net.state_dict()[k].numpy(), v)
+    mask = seg(np.zeros((48, 60, 3), np.uint8), np.ones((48, 60), np.float32))
+    assert mask.shape == (48, 60) and mask.dtype == bool
+
+
+def test_yolo_segmenter_needs_a_card_or_cpu(tmp_path, monkeypatch):
+    path = str(tmp_path / "yolov9e-seg.npz")
+    net = Y.init_weights(Y.Yolov9SegNet(TINY_SEG), torch.Generator().manual_seed(0))
+    save_pytree_npz(path, convert.yolo_params(net), meta={"cfg": TINY_SEG})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Yolov9SegSegmenter(path)

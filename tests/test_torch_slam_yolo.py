@@ -1,0 +1,150 @@
+"""The learned segmenter end to end: both packages' command lines
+(`slam.main` of the JAX package, `fourdgs_torch.cli.main --device cpu`)
+with `--dynamic` on a 128x96 dynamic synthetic sequence in TUM layout,
+with the same seeded YOLOv9-seg weights as `pretrained/yolov9e-seg.npz` in
+the working directory: each runner takes its `Yolov9SegSegmenter`, and
+the geometric segmenter's `pose_provider` is not set on it.
+
+The weights are a tiny layer list (that of tests/test_yolov9_parity.py's
+full-model test) at the 640x640 letterbox the configs run; the class
+bias of the person class is planted on the first level so that the
+frames give detections. Held: every frame's dynamic mask equal between
+the packages, every pixel, some frames with dynamic pixels and none all
+dynamic; keyframes equal and each camera centre within 5e-3 m of the
+reference's, as tests/test_torch_slam_flow.py holds the 4D path (the
+deformation starts at dystart 2 on the segmented pixels). The port's
+runner replays the reference's draws (`JaxDraws`). On both recorded
+layouts (TUM and CoFusion) the runner takes the YOLOv9 segmenter when the
+weights are in `pretrained/`, and the geometric one, fed its tracked-pose
+prediction, when they are not."""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from fourdgs.ops.rasterize import RasterConfig as JRasterConfig
+from fourdgs.perception.segmentation import Yolov9SegSegmenter as JYolov9SegSegmenter
+from fourdgs.slam import runner as jrunner
+from fourdgs_torch import cli, convert
+from fourdgs_torch.data.synthetic import (
+    SyntheticDataset,
+    write_cofusion_format,
+    write_tum_format,
+)
+from fourdgs_torch.perception import yolov9 as Y
+from fourdgs_torch.perception.segmentation import MotionSegmenter, Yolov9SegSegmenter
+from fourdgs_torch.perception.weights_io import save_pytree_npz
+from fourdgs_torch.slam import runner as trunner
+from fourdgs_torch.utils.config import ConfigDict
+from tests.test_torch_cli import _recording
+from tests.test_torch_slam import JaxDraws, one_torch_thread  # noqa: F401
+from tests.test_torch_slam_flow import _calibration, _config
+from tests.test_torch_yolov9 import TINY_FULL
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N = 4
+PERSON_BIAS = 0.0    # of class 0 on the first level (model.13.cv3.0.2.bias[0])
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory, one_torch_thread):  # noqa: F811
+    """A working directory with the sequence (`seq/`, TUM layout) and
+    `pretrained/yolov9e-seg.npz` (seeded, the person bias planted), and the
+    configuration of the run."""
+    root = tmp_path_factory.mktemp("yolo_route")
+    syn = ConfigDict.wrap({"Dataset": {
+        "type": "synthetic", "sensor_type": "depth", "num_frames": N, "dynamic": True,
+        "points_per_wall": 1500, "Calibration": {**_calibration(), "depth_scale": 1.0}}})
+    synthetic = SyntheticDataset(None, "", syn, device="cpu")
+    write_tum_format(synthetic, str(root / "seq"), depth_scale=5000.0)
+    write_cofusion_format(synthetic, str(root / "seq_cofusion"), depth_scale=5000.0)
+    net = Y.init_weights(Y.Yolov9SegNet(TINY_FULL), torch.Generator().manual_seed(0))
+    params = convert.yolo_params(net)
+    params["model.13.cv3.0.2.bias"][0] = PERSON_BIAS
+    os.makedirs(root / "pretrained")
+    save_pytree_npz(str(root / "pretrained" / "yolov9e-seg.npz"), params,
+                    meta={"cfg": TINY_FULL})
+    cfg = _config(str(root / "seq"))
+    cfg["Dataset"]["type"] = "tum"
+    cfg["Results"]["save_dir"] = str(root / "results")
+    with open(root / "tum_yolo.yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    return root
+
+
+@pytest.fixture(scope="module")
+def runs(workdir):
+    """The reference's command line and the port's, in the working
+    directory (where both find pretrained/)."""
+    sys.path.insert(0, ROOT)
+    import slam as jslam_cli
+
+    argv = ["--config", str(workdir / "tum_yolo.yaml"), "--dynamic", "--max-frames", str(N),
+            "--capacity", "4096"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(workdir)
+        mp.setenv("HOME", str(workdir))
+        mp.setenv("FOURDGS_NO_COMPILE_CACHE", "1")
+        j_made = _recording(jrunner, mp, raster=JRasterConfig(
+            use_oracle=False, tile_cap=512, max_pairs=1 << 15))
+        jslam_cli.main(argv)
+        mp.setattr(trunner, "TorchDraws", lambda seed, device: JaxDraws(seed))
+        t_made = _recording(trunner, mp)
+        cli.main(argv + ["--device", "cpu"])
+    (jslam,), (tslam,) = j_made, t_made
+    return tslam, jslam
+
+
+def _centre(T):
+    T = np.asarray(T, np.float64)
+    return -T[:3, :3].T @ T[:3, 3]
+
+
+def test_both_runners_take_the_yolo_segmenter(runs):
+    tslam, jslam = runs
+    assert isinstance(tslam.dataset.mask_fn, Yolov9SegSegmenter)
+    assert isinstance(jslam.dataset.mask_fn, JYolov9SegSegmenter)
+    assert not hasattr(tslam.dataset.mask_fn, "pose_provider")
+    assert tslam.dataset.mask_fn.classes == jslam.dataset.mask_fn.classes == [0]
+    assert tslam.dataset.mask_fn.model.imgsz == 640
+
+
+def test_dynamic_masks_equal_reference(runs):
+    tslam, jslam = runs
+    t_masks, j_masks = tslam.dataset.dynamic_masks, jslam.dataset._mask_cache
+    assert sorted(t_masks) == sorted(j_masks) == list(range(N))
+    for i in range(N):
+        np.testing.assert_array_equal(t_masks[i], j_masks[i])
+    shares = [float(t_masks[i].mean()) for i in range(N)]
+    assert max(shares) > 0 and min(shares) < 1, shares
+
+
+def test_cameras_match_reference(runs):
+    tslam, jslam = runs
+    assert tslam.kf_indices == jslam.kf_indices == [0, 2]
+    assert tslam.deform_init and jslam.deform_init
+    assert sorted(tslam.poses_est) == sorted(jslam.poses_est) == list(range(N))
+    for i in range(N):
+        err = np.linalg.norm(_centre(tslam.poses_est[i]) - _centre(jslam.poses_est[i]))
+        assert err < 5e-3, (i, err)
+
+
+@pytest.mark.parametrize("weights", [True, False], ids=["weights", "no_weights"])
+@pytest.mark.parametrize("layout", ["tum", "CoFusion"])
+def test_runner_segmenter_on_recorded_layouts(workdir, tmp_path, monkeypatch, layout, weights):
+    """SLAM(dynamic=True) as `--dynamic` makes it, on each recorded layout."""
+    monkeypatch.chdir(workdir if weights else tmp_path)
+    monkeypatch.setenv("HOME", str(tmp_path))   # no ~/.cache/fourdgs flow weights
+    cfg = _config(str(workdir / ("seq" if layout == "tum" else "seq_cofusion")))
+    cfg["Dataset"]["type"] = layout
+    slam = trunner.SLAM(ConfigDict.wrap(cfg), dynamic=True, capacity=4096, device="cpu")
+    seg = slam.dataset.mask_fn
+    if weights:
+        assert isinstance(seg, Yolov9SegSegmenter) and not hasattr(seg, "pose_provider")
+        assert slam.dataset[1][3].shape == (96, 128)
+    else:
+        assert isinstance(seg, MotionSegmenter) and seg.pose_provider == slam._predict_pose
