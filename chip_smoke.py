@@ -85,11 +85,31 @@ Phases, one line each, in order (any failure exits non-zero):
               and launches per forward (torch.profiler), and GFLOP per frame
               (convolutions, counted on the meta device) with its bound
  11. kernels  one JSON line: per kernel its launches in the SLAM phase, in
-              the dynamic phase, in the cli phase and in the flow phase (in
-              all, by number of views, and the cli phase's refinement by
-              number of views), largest error against its plain version,
-              times and bound at 10 views (the full static window), and
-              (*_1view, *_2view, *_26view) at 1, 2 and 26 views
+              the dynamic phase, in the cli phase, in the flow phase and in
+              the two runs of phase 12 (in all, by number of views, and the
+              cli phase's refinement by number of views), largest error
+              against its plain version, times and bound at 10 views (the
+              full static window), and (*_1view, *_2view, *_26view) at 1, 2
+              and 26 views; printed after phase 12
+ 12. monocular  SLAM(cfg).run() with Training.monocular at bench.py's
+              widths and capacity on its 40-frame synthetic sequence,
+              written in TUM layout to a temporary directory and read back
+              with sensor_type: monocular (no depth read): tracking at 1
+              view, mapping before initialisation at the window's views,
+              the 300-iteration initial bundle adjustment when the window of
+              8 fills (keyframe 35; with no depth, covisibility selection
+              picks nothing, so it renders window[:3] and 2 replay views).
+              Held: finite poses, initialised through that bundle adjustment
+              (or, if the window never fills, at least one recovery),
+              no depth read, ATE after Sim(3) alignment < 0.08 m, PSNR > 14;
+              printed: the runner's unscaled ATE, each frame's centre
+              error, seconds per phase, ms per tracking iteration, launches
+              by number of views per mapping phase. Then phase 5's 10-frame
+              run with Training.rm_initdy, held to phase 5's limits, its
+              reprojection masks made on the card and each equal to the
+              port's CPU reproject_mask on the same inputs on at least
+              RM_MASK_AGREE of pixels; printed: ms per mask, the share of
+              pixels removed
 then the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -879,6 +899,243 @@ def segmentation_phase() -> dict:
     return out
 
 
+MONO_FRAMES = 40   # the window of 8 fills at keyframe 35 (every fifth frame a keyframe)
+RM_FRAMES = 10     # phase 5's run
+RM_MASK_AGREE = 0.999   # reprojection masks, card against CPU
+
+
+def monocular_config(seq: str):
+    """The configuration of `bench.py` (KC.bench_config) on the TUM-layout
+    sequence at `seq`, read without depth (`sensor_type: monocular`), with
+    `Training.monocular`; no segmenter."""
+    from fourdgs_torch import kernel_check as KC
+
+    cfg = KC.bench_config(MONO_FRAMES)
+    ds = cfg["Dataset"]
+    ds.update(type="tum", dataset_path=seq, sensor_type="monocular")
+    ds["Calibration"].update(depth_scale=5000.0, distorted=False)
+    cfg["Training"]["monocular"] = True
+    cfg["model_params"] = {"dynamic_model": False}
+    return cfg
+
+
+def trace_mapping_phases(slam, wrappers) -> list:
+    """Record, for each keyframe mapping phase of `slam`, its iterations,
+    the window's size, whether the map was initialised before and after,
+    and each kernel's launches by number of views during it."""
+    phases = []
+    run_phase = slam._run_mapping
+
+    def traced(total_iters, step_after):
+        before = {w: dict(k.launches_by_views) for w, k in wrappers.items()}
+        init_before = slam.initialized
+        run_phase(total_iters, step_after)
+        phases.append({"keyframe": slam.window[0], "iters": total_iters,
+                       "window": len(slam.window), "initialized_before": init_before,
+                       "initialized_after": slam.initialized,
+                       "launches_by_views": {w: {v: n - before[w].get(v, 0)
+                                                 for v, n in k.launches_by_views.items()
+                                                 if n - before[w].get(v, 0)}
+                                             for w, k in wrappers.items()}})
+
+    slam._run_mapping = traced
+    return phases
+
+
+def sim3_ate(slam) -> float:
+    """The APE RMSE after Sim(3) alignment (`evaluate_evo(monocular=True)`),
+    its statistics written to a temporary directory."""
+    import numpy as np
+
+    from fourdgs_torch.eval.ate import evaluate_evo
+
+    ids = sorted(slam.poses_est)
+    tmp = tempfile.mkdtemp(prefix="fourdgs_sim3_")
+    try:
+        return evaluate_evo([np.linalg.inv(slam.dataset.poses[i]) for i in ids],
+                            [np.linalg.inv(slam.poses_est[i]) for i in ids], tmp,
+                            monocular=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def monocular_run(wrappers) -> dict:
+    """`SLAM(cfg).run()` of the monocular configuration on bench.py's
+    synthetic sequence, written in TUM layout to a temporary directory and
+    read back without depth; returns its record."""
+    import numpy as np
+    import torch
+
+    from fourdgs_torch import kernel_check as KC
+    from fourdgs_torch.data.synthetic import SyntheticDataset, write_tum_format
+    from fourdgs_torch.slam.runner import SLAM
+
+    tmp = tempfile.mkdtemp(prefix="fourdgs_mono_")
+    try:
+        t = time.time()
+        write_tum_format(SyntheticDataset(None, "", KC.bench_config(MONO_FRAMES), device="cuda"),
+                         os.path.join(tmp, "seq"))
+        write_s = time.time() - t
+        slam = SLAM(monocular_config(os.path.join(tmp, "seq")), capacity=KC.CAPACITY,
+                    max_capacity=KC.CAPACITY, max_keyframes=64)
+        phases = trace_mapping_phases(slam, wrappers)
+        for k in wrappers.values():
+            k.launches_by_views.clear()
+        metrics = slam.run()
+        by_views = {name: dict(k.launches_by_views) for name, k in wrappers.items()}
+        rend = slam.eval_rendering()
+        out = {
+            "frames": slam.n_frames, "has_depth": slam.dataset.has_depth,
+            "depth_read": bool(slam.store.depths.any()),
+            "ate_rmse_m": slam.eval_ate()["rmse"], "sim3_ate_rmse_m": sim3_ate(slam),
+            "psnr": rend["mean_psnr"], "l1_depth": rend["mean_l1_depth"],
+            "keyframes": list(slam.kf_indices), "window": list(slam.window),
+            "initialized": slam.initialized, "initial_ba_at": metrics.get("initial_ba_at"),
+            "resets": metrics.get("resets", 0), "gaussians": slam.gmap.num_alive,
+            "phase_s": metrics["phase_s"], "write_sequence_s": write_s,
+            "ms_per_track_iter": metrics["phase_s"]["track"] * 1e3
+            / max(metrics["phase_s"]["track_iters"], 1),
+            "mapping_phases": phases, "centre_err_mm": centre_errors_mm(slam),
+            "finite": all(np.isfinite(slam.poses_est[i]).all() for i in slam.poses_est),
+            "launches": {name: sum(n.values()) for name, n in by_views.items()},
+            "launches_by_views": by_views,
+        }
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del slam
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_monocular(out: dict) -> list:
+    """What phase 12 holds of the monocular run; the failures."""
+    bad = []
+    if out["has_depth"] or out["depth_read"]:
+        bad.append("depth was read")
+    if not out["finite"]:
+        bad.append("non-finite pose")
+    ba = [p for p in out["mapping_phases"] if p["iters"] == 300]
+    if out["initialized"]:
+        # the initial bundle adjustment: one 300-iteration phase at the full
+        # window, each of its iterations one launch of each kernel at the
+        # mapping's number of views
+        ok = (len(ba) == 1 and not ba[0]["initialized_before"] and ba[0]["initialized_after"]
+              and ba[0]["window"] == 8
+              and len(ba[0]["launches_by_views"]["composite_bwd"]) == 1
+              and sum(ba[0]["launches_by_views"]["composite_bwd"].values()) == 300)
+        if not ok:
+            bad.append(f"no initial bundle adjustment at the full window: {ba}")
+    elif out["resets"] < 1:
+        bad.append("neither initialised nor reset")
+    if not (out["sim3_ate_rmse_m"] < 0.08 and out["psnr"] > 14):
+        bad.append("Sim(3) ATE or PSNR out of bounds")
+    if min(out["launches"].values()) <= 0:
+        bad.append("a kernel never launched")
+    return bad
+
+
+def rm_initdy_run(wrappers) -> dict:
+    """Phase 5's run with `Training.rm_initdy`; each phase's reprojection
+    masks, made on the card, held against the port's CPU `reproject_mask`
+    on the same inputs."""
+    import numpy as np
+    import torch
+
+    from fourdgs_torch import kernel_check as KC
+    from fourdgs_torch.slam import keyframes as kfs
+    from fourdgs_torch.slam.runner import SLAM
+
+    cfg = KC.bench_config(40)
+    cfg["Training"]["rm_initdy"] = True
+    slam = SLAM(cfg, max_frames=RM_FRAMES, capacity=KC.CAPACITY, max_capacity=KC.CAPACITY,
+                max_keyframes=64)
+    made = []
+    reproject = slam._reproject_masks
+
+    def traced(key_opt):
+        anchor = slam.kf_slot[slam.kf_indices[0]]
+        inputs = [(slam.store.depths[anchor].cpu(), slam.store.motion[anchor].cpu(),
+                   slam.store.T_cw[anchor].cpu(), slam.store.T_cw[slam.kf_slot[kf]].cpu())
+                  for kf in key_opt]
+        torch.cuda.synchronize()
+        t = time.time()
+        masks = reproject(key_opt)
+        torch.cuda.synchronize()
+        made.append({"keyframes": list(key_opt), "ms": (time.time() - t) * 1e3,
+                     "device": masks.device.type, "inputs": inputs,
+                     "masks": masks[:len(key_opt)].cpu()})
+        return masks
+
+    slam._reproject_masks = traced
+    for k in wrappers.values():
+        k.launches_by_views.clear()
+    metrics = slam.run()
+    by_views = {name: dict(k.launches_by_views) for name, k in wrappers.items()}
+    # the masks again, warm: the first call above pays for the operators'
+    # first use on the card
+    key_opt = made[-1]["keyframes"]
+    reproject(key_opt)
+    torch.cuda.synchronize()
+    t = time.time()
+    for _ in range(10):
+        reproject(key_opt)
+    torch.cuda.synchronize()
+    warm_ms = (time.time() - t) * 1e3 / (10 * len(key_opt))
+    rend = slam.eval_rendering()
+    intr = slam.intr
+    mask_phases = []
+    for m in made:
+        agree = []
+        for (depth, static, T_a, T_c), got in zip(m["inputs"], m["masks"]):
+            want = kfs.reproject_mask(depth, static, T_a, T_c, fx=intr.fx, fy=intr.fy,
+                                      cx=intr.cx, cy=intr.cy)
+            agree.append(float((want == got).to(torch.float32).mean()))
+        mask_phases.append({"keyframes": m["keyframes"], "ms": m["ms"], "device": m["device"],
+                            "ms_per_mask": m["ms"] / max(len(m["keyframes"]), 1),
+                            "removed_share": [float((~g).to(torch.float32).mean())
+                                              for g in m["masks"]],
+                            "agree_with_cpu": agree})
+    out = {"ate_rmse_m": slam.eval_ate()["rmse"], "psnr": rend["mean_psnr"],
+           "l1_depth": rend["mean_l1_depth"], "keyframes": list(slam.kf_indices),
+           "gaussians": slam.gmap.num_alive, "phase_s": metrics["phase_s"],
+           "mask_phases": mask_phases, "ms_per_mask_warm": warm_ms,
+           "centre_err_mm": centre_errors_mm(slam),
+           "finite": all(np.isfinite(slam.poses_est[i]).all() for i in slam.poses_est),
+           "launches": {name: sum(n.values()) for name, n in by_views.items()},
+           "launches_by_views": by_views}
+    del slam
+    torch.cuda.empty_cache()
+    return out
+
+
+def monocular_phase(wrappers) -> dict:
+    """Phase 12: the monocular run on the card, then the rm_initdy run."""
+    t = time.time()
+    log(f"monocular: {MONO_FRAMES} frames of bench.py's sequence at its widths, in TUM "
+        "layout, read without depth; capacity 2^15, iteration counts, window 8 + 2 replay "
+        "unchanged")
+    mono = monocular_run(wrappers)
+    mono["seconds"] = time.time() - t
+    log("monocular: " + json.dumps(mono))
+    if not mono["initialized"]:
+        log(f"monocular: the window never filled; {mono['resets']} recoveries (_reset)")
+    bad = check_monocular(mono)
+    if bad:
+        raise SystemExit(f"monocular phase out of bounds: {bad}")
+
+    t = time.time()
+    rm = rm_initdy_run(wrappers)
+    rm["seconds"] = time.time() - t
+    log("rm_initdy: " + json.dumps(rm))
+    ok = (rm["ate_rmse_m"] < 0.05 and rm["psnr"] > 15 and rm["l1_depth"] < 1.2 and rm["finite"]
+          and rm["mask_phases"] and min(rm["launches"].values()) > 0
+          and all(m["device"] == "cuda" and min(m["agree_with_cpu"]) >= RM_MASK_AGREE
+                  for m in rm["mask_phases"]))
+    if not ok:
+        raise SystemExit(f"rm_initdy phase out of bounds: {rm}")
+    return {"monocular": mono, "rm_initdy": rm}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1086,6 +1343,12 @@ def main() -> int:
     record["segmentation"] = segmentation_phase()
     log(f"phase segmentation: {time.time() - t:.1f}s")
 
+    # ---- phase 12: monocular SLAM and rm_initdy, each with its launches
+    t = time.time()
+    record.update(monocular_phase(wrappers))
+    mono, rm = record["monocular"], record["rm_initdy"]
+    log(f"phase monocular: {time.time() - t:.1f}s")
+
     # ---- phase 11: the kernels line; ms, plain_ms and bound_ms are at 10
     # views (the full static window), the *_1view, *_2view and *_26view
     # keys at tracking's shape, the static phase's mapping and the full 4D
@@ -1105,6 +1368,10 @@ def main() -> int:
              "launches_flow": sum(flow["launches_by_views"][name].values()),
              "launches_by_views_flow": flow["launches_by_views"][name],
              "launches_flow_views_flow": flow["flow_view_launches"][name],
+             "launches_monocular": mono["launches"][name],
+             "launches_by_views_monocular": mono["launches_by_views"][name],
+             "launches_rm_initdy": rm["launches"][name],
+             "launches_by_views_rm_initdy": rm["launches_by_views"][name],
              "max_abs_err": max(r["err"][k] for r in compare.values() for k in err_keys),
              **{key: compare[10][src] for key, src in timed.items()}, "library_ms": None}
         for v in (1, 2, 26):

@@ -2,7 +2,9 @@
 fourdgs/eval/ate.py).
 
 `evaluate_ate` aligns estimated and ground-truth camera centres with
-Horn's closed-form rotation (no scale) and reports the RMSE;
+Horn's closed-form rotation (no scale) and reports the RMSE; the runner
+calls it, and `save_trajectory`, without scale on monocular runs too, as
+the reference does (`evaluate_evo(monocular=True)` is the Sim(3) APE);
 `save_trajectory` also writes `pose.txt`, `plot/ATE_<label>.json`, the
 evo-style APE statistics `plot/stats_<label>.json` and the per-frame
 trajectories `plot/trj_<label>.json`. Plots are drawn only where
@@ -55,17 +57,21 @@ def evaluate_ate(poses_est: list[np.ndarray], poses_gt: list[np.ndarray]) -> dic
     }
 
 
-def umeyama_alignment(model: np.ndarray, data: np.ndarray):
-    """Umeyama alignment of (3, N) point sets without scale (RGB-D): (rot,
-    trans) minimizing ||rot @ model + trans - data||^2."""
+def umeyama_alignment(model: np.ndarray, data: np.ndarray, with_scale: bool = False):
+    """Umeyama alignment of (3, N) point sets: (rot, trans, scale)
+    minimizing ||scale * rot @ model + trans - data||^2, the scale 1 unless
+    `with_scale` (monocular)."""
     mu_m = model.mean(1, keepdims=True)
     mu_d = data.mean(1, keepdims=True)
-    U, _, Vt = np.linalg.svd((data - mu_d) @ (model - mu_m).T / model.shape[1])
+    model_zero = model - mu_m
+    n = model.shape[1]
+    U, d, Vt = np.linalg.svd((data - mu_d) @ model_zero.T / n)
     S = np.eye(3)
     if np.linalg.det(U) * np.linalg.det(Vt) < 0:
         S[2, 2] = -1
     rot = U @ S @ Vt
-    return rot, mu_d - rot @ mu_m
+    scale = float(np.trace(np.diag(d) @ S) / ((model_zero**2).sum() / n)) if with_scale else 1.0
+    return rot, mu_d - scale * rot @ mu_m, scale
 
 
 def _plot(draw, path: str) -> None:
@@ -85,14 +91,14 @@ def _plot(draw, path: str) -> None:
 
 
 def evaluate_evo(poses_gt: list[np.ndarray], poses_est: list[np.ndarray], plot_dir: str,
-                 label: str = "final") -> float:
+                 label: str = "final", monocular: bool = False) -> float:
     """evo-style APE of camera-to-world poses: Umeyama-align the estimate to
-    the ground truth, take the translation errors, write
-    `stats_<label>.json` (and a plot). Returns the RMSE."""
+    the ground truth (with scale when `monocular`), take the translation
+    errors, write `stats_<label>.json` (and a plot). Returns the RMSE."""
     t_gt = np.stack([T[:3, 3] for T in poses_gt], axis=1)
     t_est = np.stack([T[:3, 3] for T in poses_est], axis=1)
-    rot, trans = umeyama_alignment(t_est, t_gt)
-    t_al = rot @ t_est + trans
+    rot, trans, scale = umeyama_alignment(t_est, t_gt, with_scale=monocular)
+    t_al = scale * rot @ t_est + trans
     err = np.linalg.norm(t_gt - t_al, axis=0)
     stats = {
         "rmse": float(np.sqrt(np.mean(err**2))),

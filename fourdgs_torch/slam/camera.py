@@ -67,7 +67,12 @@ class Frame(NamedTuple):
 
 def make_frame(uid: int, image, depth, T_gt, time: float, motion_mask=None,
                edge_threshold: float = 1.1, *, device: torch.device | str) -> Frame:
+    """A frame on `device`. A frame without depth (`depth` None: a
+    `sensor_type: monocular` recording) carries depth zeros, which every
+    depth mask reads as invalid."""
     image = torch.as_tensor(image, dtype=torch.float32, device=device)
+    if depth is None:
+        depth = torch.zeros(image.shape[1:], dtype=torch.float32, device=device)
     depth = torch.as_tensor(depth, dtype=torch.float32, device=device)
     if motion_mask is None:
         motion_mask = torch.ones(depth.shape, dtype=torch.bool, device=device)

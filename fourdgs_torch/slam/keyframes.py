@@ -7,7 +7,9 @@ replay picks. The store is updated in place: a functional copy per
 keyframe would duplicate every stored image and depth map.
 
 The window policy (translation/covisibility keyframe test, window
-eviction, covisibility-overlap selection) is host-side numpy.
+eviction, covisibility-overlap selection) is host-side numpy. The
+depth-reprojection mask of `rm_initdy` (`reproject_mask`) runs on the
+device of its inputs.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fourdgs_torch.slam.camera import Frame
 
@@ -180,3 +183,50 @@ def keyframe_selection_overlap(
         ranked.append((uid, float(np.mean(ok))))
     ranked = [u for u, p in sorted(ranked, key=lambda t: -t[1]) if p > 0.0]
     return list(rng.permutation(np.array(ranked, dtype=np.int64)))[:max_selected] if ranked else []
+
+
+# ---------------------------------------------------------------------------
+# Depth-reprojection consistency mask
+# ---------------------------------------------------------------------------
+
+
+def _dilate3x3(mask: torch.Tensor, iters: int = 3) -> torch.Tensor:
+    """Binary dilation of an (H, W) bool mask by a 3x3 square, `iters`
+    times; pixels outside the image count as False."""
+    m = mask.to(torch.float32)[None, None]
+    for _ in range(iters):
+        m = F.max_pool2d(m, 3, stride=1, padding=1)
+    return m[0, 0] > 0
+
+
+def reproject_mask(
+    anchor_depth: torch.Tensor,   # (H, W) f32 — anchor keyframe depth
+    anchor_static: torch.Tensor,  # (H, W) bool — anchor motion mask (True = static)
+    T_anchor_cw: torch.Tensor,    # (4, 4) anchor world->camera
+    T_curr_cw: torch.Tensor,      # (4, 4) current-view world->camera
+    fx: float, fy: float, cx: float, cy: float,
+) -> torch.Tensor:
+    """True on the pixels of the current view that the anchor keyframe's
+    valid static depth does not cover: the depth is back-projected,
+    reprojected into the current view, the pixels hit (coordinates
+    truncated toward zero) marked, dilated three times by 3x3, and the
+    complement returned. An anchor with no valid static depth gives all
+    True. Runs on the inputs' device."""
+    h, w = anchor_depth.shape
+    dev = anchor_depth.device
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
+                            torch.arange(w, device=dev, dtype=torch.float32), indexing="ij")
+    valid = (anchor_depth > 0) & anchor_static
+    d = anchor_depth
+    pts_c = torch.stack([(xs - cx) / fx * d, (ys - cy) / fy * d, d, torch.ones_like(d)],
+                        dim=-1).reshape(-1, 4)
+    pts = (pts_c @ torch.linalg.inv(T_anchor_cw).T) @ T_curr_cw.T
+    z = pts[:, 2] + 1e-5
+    u = pts[:, 0] / z * fx + cx
+    v = pts[:, 1] / z * fy + cy
+    # u >= 0 and u < w is trunc(u) in [0, w): the bounds test on the float
+    # coordinates, before a cast that could overflow
+    ok = valid.reshape(-1) & (z > 1e-5) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    hit = torch.zeros(h * w, dtype=torch.bool, device=dev)
+    hit[v[ok].to(torch.int64) * w + u[ok].to(torch.int64)] = True
+    return ~_dilate3x3(hit.reshape(h, w)) | ~torch.any(valid)

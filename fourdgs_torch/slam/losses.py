@@ -1,5 +1,6 @@
-"""The SLAM losses (port of fourdgs/slam/losses.py without the
-monocular and refinement terms).
+"""The SLAM losses (port of fourdgs/slam/losses.py, with the RGB-only
+tracking and mapping losses that fourdgs/slam/tracking.py and mapping.py
+write inline for monocular runs).
 
 Images are (3, H, W) in [0,1]; depths and opacity (H, W); `motion_mask`
 is True on static (usable) pixels. The mapping and flow losses also take
@@ -42,6 +43,31 @@ def tracking_loss_rgbd(
     return alpha * l1_rgb + (1.0 - alpha) * l1_depth
 
 
+def tracking_loss_rgb(
+    image: torch.Tensor,
+    opacity: torch.Tensor,
+    gt_image: torch.Tensor,
+    grad_mask: torch.Tensor,
+    motion_mask: torch.Tensor | None = None,
+    rgb_boundary_threshold: float = 0.01,
+) -> torch.Tensor:
+    """The monocular tracking loss: opacity-weighted L1 RGB on the edge
+    pixels of non-black, static pixels, the mean over the full image."""
+    rgb_mask = (torch.sum(gt_image, dim=0) > rgb_boundary_threshold) & grad_mask
+    if motion_mask is not None:
+        rgb_mask = rgb_mask & motion_mask
+    return torch.mean(opacity[None] * torch.abs((image - gt_image) * rgb_mask.to(image.dtype)[None]))
+
+
+def mapping_loss_rgb(image: torch.Tensor, gt_image: torch.Tensor,
+                     rgb_boundary_threshold: float = 0.01) -> torch.Tensor:
+    """The monocular mapping loss: L1 RGB on non-black pixels (no motion or
+    extra mask), batched over a leading view axis like `mapping_loss_rgbd`."""
+    rgb_mask = torch.sum(gt_image, dim=-3) > rgb_boundary_threshold
+    return torch.mean(torch.abs((image - gt_image) * rgb_mask.to(image.dtype).unsqueeze(-3)),
+                      dim=(-3, -2, -1))
+
+
 def mapping_loss_rgbd(
     image: torch.Tensor,
     depth: torch.Tensor,
@@ -52,16 +78,22 @@ def mapping_loss_rgbd(
     rgb_boundary_threshold: float = 0.01,
     rm_dynamic: bool = False,
     dynamic: bool = False,
+    extra_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """L1 RGB + L1 depth mapping loss; batched over a leading view axis
     when given (V, 3, H, W) images, returning per-view losses. With
     `dynamic`, the per-pixel L1 counts twice on dynamic pixels
-    (~motion_mask); the 4D mapping sets it per iteration."""
+    (~motion_mask); the 4D mapping sets it per iteration. `extra_mask`
+    (the `rm_initdy` reprojection masks) is ANDed into both pixel masks
+    with `rm_dynamic`, as the motion mask is."""
     rgb_mask = torch.sum(gt_image, dim=-3) > rgb_boundary_threshold
     depth_mask = (gt_depth > 0.01) & (gt_depth < 10000.0)
     if motion_mask is not None and rm_dynamic:
         rgb_mask = rgb_mask & motion_mask
         depth_mask = depth_mask & motion_mask
+    if extra_mask is not None and rm_dynamic:
+        rgb_mask = rgb_mask & extra_mask
+        depth_mask = depth_mask & extra_mask
     l1_rgb = torch.abs((image - gt_image) * rgb_mask.to(image.dtype).unsqueeze(-3))
     l1_depth = torch.abs((depth - gt_depth) * depth_mask.to(depth.dtype))
     if dynamic and motion_mask is not None:

@@ -13,6 +13,11 @@ Window-view tile bins are recomputed every `rebin_every` iterations (the
 reference's round structure); replay views are binned every iteration.
 The densify / opacity-reset cadence runs on the host between chunks.
 
+With `MappingConfig.monocular` the loss is RGB only (`mapping_loss_rgb`).
+`extra_masks` (the `rm_initdy` reprojection masks, one per window view)
+are ANDed into the RGB-D loss's pixel masks of the window views; the
+replay views take none.
+
 With `MappingConfig.refine` (colour refinement) every iteration's view
 set is instead `num_views` distinct keyframes drawn from the whole pool
 (`refine_picks`), binned afresh, under (1 - lambda) L1 + lambda (1 - SSIM)
@@ -46,7 +51,7 @@ from fourdgs_torch.ops.rasterize.api import (
 from fourdgs_torch.ops.rasterize.binning import cat_bins
 from fourdgs_torch.slam.camera import Intrinsics
 from fourdgs_torch.slam.keyframes import KeyframeStore, fetch_images
-from fourdgs_torch.slam.losses import isotropic_loss, mapping_loss_rgbd
+from fourdgs_torch.slam.losses import isotropic_loss, mapping_loss_rgb, mapping_loss_rgbd
 
 
 class MappingConfig(NamedTuple):
@@ -59,6 +64,7 @@ class MappingConfig(NamedTuple):
     lr_trans: float = 0.0005
     lr_exposure: float = 0.01
     isotropic_weight: float = 10.0
+    monocular: bool = False       # RGB-only loss
     refine: bool = False          # colour-refinement objective and view draws
     rm_dynamic: bool = True       # mask dynamic pixels out of the loss
     raster: RasterConfig = RasterConfig()
@@ -154,6 +160,7 @@ def map_chunk(
     iter_base: int,             # global iteration_count at chunk start
     intr: Intrinsics,
     cfg: MappingConfig = MappingConfig(),
+    extra_masks: torch.Tensor | None = None,   # (Vw, H, W) bool reprojection masks
 ) -> MapChunkResult:
     dev = gmap.alive.device
     proj = intr.proj(device=dev)
@@ -196,6 +203,10 @@ def map_chunk(
             slots = torch.as_tensor(np.concatenate([window_slots[w_act], r_slots]),
                                     device=dev, dtype=torch.long)
             bins = bins_w
+            ems = None
+            if extra_masks is not None:
+                ems = torch.cat([extra_masks[w_act], torch.ones(
+                    (r_slots.size,) + extra_masks.shape[1:], dtype=torch.bool, device=dev)])
             if r_slots.size:
                 bins = cat_bins(bins_w, _views_bins(gmap, store, slots[len(w_act):],
                                                     proj, intr, cfg))
@@ -217,12 +228,15 @@ def map_chunk(
         if cfg.refine:
             per_view = refine_loss(images_ab, fetch_images(store, slots), out.depth,
                                    store.depths[slots], store.motion[slots])
+        elif cfg.monocular:
+            per_view = mapping_loss_rgb(images_ab, fetch_images(store, slots),
+                                        rgb_boundary_threshold=cfg.rgb_boundary_threshold)
         else:
             per_view = mapping_loss_rgbd(
                 images_ab, out.depth, fetch_images(store, slots), store.depths[slots],
                 motion_mask=store.motion[slots], alpha=cfg.alpha,
                 rgb_boundary_threshold=cfg.rgb_boundary_threshold,
-                rm_dynamic=cfg.rm_dynamic,
+                rm_dynamic=cfg.rm_dynamic, extra_mask=ems,
             )
         iso = cfg.isotropic_weight * isotropic_loss(torch.exp(params.scaling), gmap.alive)
         loss = torch.sum(per_view) + iso

@@ -38,6 +38,20 @@ After `run`, the command line (cli.py) evaluates the trajectory
 random keyframes (`color_refinement`) and writes the artifacts (`save`,
 `save_checkpoint`) under `save_dir`.
 
+With `Training.monocular` (a config, no flag) tracking and mapping take
+the RGB-only losses, Gaussians spawn at a noisy 2 m depth drawn per
+frame, and the map starts uninitialised: keyframes map `mapping_itr_num`
+iterations until the window first fills, then 300 iterations of initial
+bundle adjustment; a keyframe that pushes another out of the window
+before then resets the map to that keyframe (`_reset`). Monocular
+recordings (`Dataset.sensor_type: monocular`) carry no depth: their
+frames carry depth zeros, so the window's covisibility selection finds
+no picks and mapping renders window[:3] and the replay views. With
+`Training.rm_initdy`, each static mapping phase masks out of the RGB-D
+loss the pixels of each window view that the first keyframe's static
+depth reprojects onto (keyframes.py `reproject_mask`), computed once per
+phase on the runner's device.
+
 The port runs on the CUDA device unless `device="cpu"` is passed; with no
 device and no CUDA it raises. It has no fixed pair buffer, so the
 reference's pair-budget ladder and re-runs on overflow are gone; an
@@ -107,8 +121,8 @@ class SLAM:
         self.save_interval = save_interval
         self.dynamic = dynamic
         tr = config["Training"]
-        if tr.get("monocular", False) or tr.get("rm_initdy", False):
-            raise ValueError("the port runs the RGB-D path only (no monocular, no rm_initdy)")
+        self.monocular = bool(tr.get("monocular", False))
+        self.rm_initdy = bool(tr.get("rm_initdy", False))
         self.kf_interval = int(tr.get("kf_interval", 5))
         self.window_size = int(tr.get("window_size", 8))
         self.pose_window = int(tr.get("pose_window", 3))
@@ -117,6 +131,7 @@ class SLAM:
         self.kf_overlap = float(tr.get("kf_overlap", 0.9))
         self.kf_cutoff = float(tr.get("kf_cutoff", 0.3))
         self.alpha = float(tr.get("alpha", 0.95))
+        self.mapping_itr_num = int(tr.get("mapping_itr_num", 50))
         self.init_itr_num = int(tr.get("init_itr_num", 1050))
         self.init_gaussian_update = int(tr.get("init_gaussian_update", 100))
         self.init_gaussian_reset = int(tr.get("init_gaussian_reset", 500))
@@ -183,6 +198,7 @@ class SLAM:
         self.raster = RasterConfig()
         self.track_cfg = TrackingConfig(
             max_iters=self.tracking_itr_num,
+            monocular=self.monocular,
             lr_rot=float(tr["lr"]["cam_rot_delta"]),
             lr_trans=float(tr["lr"]["cam_trans_delta"]),
             alpha=self.alpha,
@@ -194,6 +210,7 @@ class SLAM:
             num_window_views=self.window_size,
             pose_window=self.pose_window,
             alpha=self.alpha,
+            monocular=self.monocular,
             lr_rot=float(tr["lr"]["cam_rot_delta"]) * 0.5,
             lr_trans=float(tr["lr"]["cam_trans_delta"]) * 0.5,
             rm_dynamic=True,
@@ -222,6 +239,9 @@ class SLAM:
         self.median_depth = 2.0
         self.max_pairs_seen = 0
         self.rng = np.random.default_rng(0)
+        # RGB-D maps start initialised; a monocular map once its window
+        # first fills (the initial bundle adjustment)
+        self.initialized = not self.monocular
         self.metrics: dict = {}
         self._phase = _zero_phases()
 
@@ -252,7 +272,13 @@ class SLAM:
                            32 if init else 128))
         valid_rgb = torch.sum(frame.image, dim=0) > 0.01
         motion = ~frame.motion_mask if dygs else frame.motion_mask
-        depth = frame.depth * valid_rgb * motion
+        depth = frame.depth
+        if self.monocular:
+            # no depth to spawn from: 2 m + 0.3 N(0, 1), drawn per frame
+            rng = np.random.default_rng(int(frame.uid) + 1234)
+            noise = (2.0 + rng.standard_normal(tuple(valid_rgb.shape)) * 0.3).astype(np.float32)
+            depth = torch.as_tensor(noise, device=self.device)
+        depth = depth * valid_rgb * motion
         cands = gm.candidates_from_rgbd(
             self.draws.uniform(depth.numel()), frame.image, depth, T_cw,
             self.intr.fx, self.intr.fy, self.intr.cx, self.intr.cy,
@@ -277,11 +303,11 @@ class SLAM:
         self._maybe_grow()
 
     def _map(self, slots, valid, opt_pose, pool, pool_size, pose_adam, chunk,
-             step_after):
+             step_after, extra_masks=None):
         res = map_chunk(
             self.gmap, self.adam, self.store, slots, valid, opt_pose, pool, pool_size,
             pose_adam, self.draws.replay_picks(chunk, pool_size), chunk, step_after,
-            self.iteration_count, self.intr, self.map_cfg,
+            self.iteration_count, self.intr, self.map_cfg, extra_masks=extra_masks,
         )
         self._note_pairs(res.num_pairs, res.overflow)
         self.gmap, self.adam, self.store = res.gmap, res.adam, res.store
@@ -380,10 +406,31 @@ class SLAM:
         pool = [self.kf_slot[k] for k in self.kf_indices if k not in key_opt]
         return slots, valid, opt_pose, np.asarray(pool or [0], np.int64), len(pool), key_opt
 
+    def _reproject_masks(self, key_opt: list[int]) -> torch.Tensor:
+        """(Vw, H, W) bool: per mapped window view, the pixels the first
+        keyframe's static depth does not reproject onto (True elsewhere and
+        on unused views). Computed once per mapping phase: the reference
+        recomputes them per iteration, while window poses move by under
+        1e-3 within a phase."""
+        anchor = self.kf_slot[self.kf_indices[0]]
+        vw = self.map_cfg.num_window_views
+        masks = torch.ones((vw, self.intr.height, self.intr.width), dtype=torch.bool,
+                           device=self.device)
+        for i, kf in enumerate(key_opt[:vw]):
+            masks[i] = kfs.reproject_mask(
+                self.store.depths[anchor], self.store.motion[anchor], self.store.T_cw[anchor],
+                self.store.T_cw[self.kf_slot[kf]],
+                fx=self.intr.fx, fy=self.intr.fy, cx=self.intr.cx, cy=self.intr.cy,
+            )
+        return masks
+
     def _run_mapping(self, total_iters: int, step_after: int):
         """`total_iters` mapping iterations, in chunks broken at the
-        densify/reset cadence boundaries."""
+        densify/reset cadence boundaries; a full window marks the map
+        initialised afterwards (the reference's prune pass, which prunes
+        nothing on either path)."""
         slots, valid, opt_pose, pool, pool_size, key_opt = self._window_arrays()
+        extra_masks = self._reproject_masks(key_opt) if self.rm_initdy else None
         pose_adam = init_pose_adam(self.map_cfg.num_window_views, self.device)
         done = 0
         for chunk, new_it, fire in mapping_cadence(
@@ -391,7 +438,7 @@ class SLAM:
             self.gaussian_update_every, self.gaussian_update_offset, self.gaussian_reset,
         ):
             res = self._map(slots, valid, opt_pose, pool, pool_size, pose_adam, chunk,
-                            step_after - done)
+                            step_after - done, extra_masks)
             pose_adam = res.pose_adam
             done += chunk
             self.iteration_count = new_it
@@ -405,6 +452,28 @@ class SLAM:
                 )
 
         self._resync_window(key_opt, count_obs=True)
+        if len(self.window) == self.window_size:
+            self.initialized = True
+
+    def _reset(self, idx: int, frame: Frame):
+        """The monocular recovery: drop the map and the keyframes, and start
+        again from keyframe idx at its tracked pose, uninitialised."""
+        self.gmap = gm.empty_map(self.gmap.capacity, self.device)
+        self.adam = gm.init_adam(self.gmap.capacity, self.device)
+        self.store = kfs.empty_store(self.store.capacity, self.intr.height, self.intr.width,
+                                     self.device)
+        self.kf_slot.clear()
+        self.occ_visibility.clear()
+        self.iteration_count = 0
+        self.initialized = False
+        T = self.poses_est[idx]
+        kfs.store_keyframe(self.store, 0, frame, T, np.zeros(2))
+        self.kf_slot[idx] = 0
+        self.kf_indices = [idx]
+        self.kf_total = 1
+        self.window = [idx]
+        self._spawn_gaussians(frame, self._pose_tensor(T), np.zeros(2), init=True)
+        self.occ_visibility[idx], _ = self._visibility_at(self.store.T_cw[0])
 
     def _resync_window(self, key_opt: list[int], count_obs: bool):
         """After a mapping phase: the window's occlusion-aware visibility
@@ -516,10 +585,15 @@ class SLAM:
         slot = self._assign_kf_slot(idx)
         kfs.store_keyframe(self.store, slot, frame, self.poses_est[idx], self.exposures[idx])
         self.occ_visibility[idx] = curr_visibility
-        self.window, _ = kfs.add_to_window(
+        self.window, removed = kfs.add_to_window(
             idx, curr_visibility, self.occ_visibility, self.window,
-            self.poses_est, self.kf_cutoff, self.window_size,
+            self.poses_est, self.kf_cutoff, self.window_size, initialized=self.initialized,
         )
+        if self.monocular and not self.initialized and removed is not None:
+            Log("Keyframes lack sufficient overlap to initialize; resetting")
+            self.metrics["resets"] = self.metrics.get("resets", 0) + 1
+            self._reset(idx, frame)
+            return
         self._spawn_gaussians(frame, self._pose_tensor(self.poses_est[idx]),
                               self.exposures[idx], init=False)
         if self.dynamic and not self.deform_init and idx >= self.dystart:
@@ -530,6 +604,14 @@ class SLAM:
         if self.dynamic and not self.deform_init and idx < self.dystart:
             # before dystart, the 4D path maps a short static phase
             iters, step_after = 20, -1
+        if not self.initialized:
+            # monocular: short phases until the window first fills, then
+            # the initial bundle adjustment
+            full = len(self.window) == self.window_size
+            iters, step_after = (300 if full else self.mapping_itr_num), -1
+            if full:
+                Log("Performing initial BA for initialization", tag="Backend")
+                self.metrics["initial_ba_at"] = idx
         if self.dynamic and self.deform_init:
             self._run_mapping_dynamic(iters, step_after)
         else:
@@ -560,6 +642,7 @@ class SLAM:
                 last_kf = 0
                 continue
 
+            self.initialized = self.initialized or len(self.window) == self.window_size
             _pt = time.time()
             res = track_frame(
                 self.gmap, frame, self._pose_tensor(self.poses_est[idx - 1]),
@@ -705,7 +788,7 @@ class SLAM:
             "kf_slot": {str(k): v for k, v in self.kf_slot.items()},
             "poses_est": {str(k): np.asarray(v).tolist() for k, v in self.poses_est.items()},
             "exposures": {str(k): np.asarray(v).tolist() for k, v in self.exposures.items()},
-            "initialized": True,   # RGB-D runs start initialized
+            "initialized": self.initialized,
             "median_depth": self.median_depth,
             "deform_init": self.deform_init,
         }
@@ -740,6 +823,7 @@ class SLAM:
         self.poses_est = {int(k): np.asarray(v) for k, v in host["poses_est"].items()}
         self.exposures = {int(k): np.asarray(v) for k, v in host["exposures"].items()}
         self.median_depth = host["median_depth"]
+        self.initialized = bool(host.get("initialized", not self.monocular))
         if host.get("deform_init", False) and os.path.exists(path + ".deform.npz"):
             if self.deform is None:
                 self.deform = self._deform_template()

@@ -12,6 +12,9 @@ up to `rebin_every` iterations on those bins; a step larger than
 `rebin_delta_threshold` ends the round early, so the next round re-bins.
 A frame with fast motion can therefore take fewer than `max_iters` steps,
 exactly as in the reference.
+
+With `monocular` the loss is RGB only (`tracking_loss_rgb`); the median
+depth of the result still comes from the final render.
 """
 
 from __future__ import annotations
@@ -24,11 +27,17 @@ from fourdgs_torch.geometry.se3 import se3_exp
 from fourdgs_torch.models.gaussian_map import GaussianMap
 from fourdgs_torch.ops.rasterize.api import RasterConfig, compute_bins, rasterize
 from fourdgs_torch.slam.camera import Frame, Intrinsics
-from fourdgs_torch.slam.losses import apply_exposure, median_depth, tracking_loss_rgbd
+from fourdgs_torch.slam.losses import (
+    apply_exposure,
+    median_depth,
+    tracking_loss_rgb,
+    tracking_loss_rgbd,
+)
 
 
 class TrackingConfig(NamedTuple):
     max_iters: int = 100
+    monocular: bool = False
     lr_rot: float = 0.003
     lr_trans: float = 0.001
     lr_exposure: float = 0.01
@@ -109,11 +118,17 @@ def track_frame(
             T = se3_exp(delta[:6]) @ T_cw
             out = render_at(T, bins)
             image_ab = apply_exposure(out.color, delta[6], delta[7])
-            loss = tracking_loss_rgbd(
-                image_ab, out.depth, out.alpha, frame.image, frame.depth,
-                frame.grad_mask, motion_mask=motion, alpha=config.alpha,
-                rgb_boundary_threshold=config.rgb_boundary_threshold,
-            )
+            if config.monocular:
+                loss = tracking_loss_rgb(
+                    image_ab, out.alpha, frame.image, frame.grad_mask, motion_mask=motion,
+                    rgb_boundary_threshold=config.rgb_boundary_threshold,
+                )
+            else:
+                loss = tracking_loss_rgbd(
+                    image_ab, out.depth, out.alpha, frame.image, frame.depth,
+                    frame.grad_mask, motion_mask=motion, alpha=config.alpha,
+                    rgb_boundary_threshold=config.rgb_boundary_threshold,
+                )
             (g,) = torch.autograd.grad(loss, delta)
             with torch.no_grad():
                 count += 1

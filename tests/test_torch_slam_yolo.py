@@ -6,9 +6,14 @@ the working directory: each runner takes its `Yolov9SegSegmenter`, and
 the geometric segmenter's `pose_provider` is not set on it.
 
 The weights are a tiny layer list (that of tests/test_yolov9_parity.py's
-full-model test) at the 640x640 letterbox the configs run; the class
-bias of the person class is planted on the first level so that the
-frames give detections. Held: every frame's dynamic mask equal between
+full-model test) at the 640x640 letterbox the configs run; the person
+class's output convolution on the first level is planted (one input
+channel's weight and the bias) so that each frame gives a few well-separated
+detections: `test_planted_detections_are_well_conditioned` holds, on the
+reference's outputs, that no decision of the post-processing lies within
+rounding of its threshold. The same post-processing on the 25,600 tied
+candidates of a uniform person bias is held bit for bit on shared
+forward outputs. Held: every frame's dynamic mask equal between
 the packages, every pixel, some frames with dynamic pixels and none all
 dynamic; keyframes equal and each camera centre within 5e-3 m of the
 reference's, as tests/test_torch_slam_flow.py holds the 4D path (the
@@ -21,12 +26,14 @@ prediction, when they are not."""
 import os
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import yaml
 
 from fourdgs.ops.rasterize import RasterConfig as JRasterConfig
+from fourdgs.perception import yolov9 as JY
 from fourdgs.perception.segmentation import Yolov9SegSegmenter as JYolov9SegSegmenter
 from fourdgs.slam import runner as jrunner
 from fourdgs_torch import cli, convert
@@ -47,7 +54,33 @@ from tests.test_torch_yolov9 import TINY_FULL
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 4
-PERSON_BIAS = 0.0    # of class 0 on the first level (model.13.cv3.0.2.bias[0])
+# the person class (0) on the first level: its output convolution
+# model.13.cv3.0.2 reads input channel PERSON_CHANNEL alone, with weight
+# PERSON_WEIGHT and bias PERSON_BIAS. Chosen from the reference's outputs on
+# the N frames: three candidates per frame (anchors of the leftmost column,
+# two of them in the letterbox's padding), two kept, scores 2.8e-4 or more
+# from conf and 4.2e-4 or more apart, box edges 0.02 px or more from an
+# integer (the guard below holds it); the masks cover a band at the
+# frame's left edge, 10% of its pixels (the seeded network's first-level
+# features barely respond to the moving blob, so no detection is on it)
+PERSON_CHANNEL, PERSON_WEIGHT, PERSON_BIAS = 3, 130.0, -14.93
+TIED_BIAS = 0.0   # every first-level anchor a person candidate, scores tied within ulps
+CONF, MAX_DET = 0.25, 100   # Yolov9SegSegmenter's conf, nms_numpy's max_det
+
+
+def _params(planted: bool) -> dict:
+    """The seeded tiny weights, with the person class planted, or (not
+    `planted`) with its first-level bias at TIED_BIAS."""
+    net = Y.init_weights(Y.Yolov9SegNet(TINY_FULL), torch.Generator().manual_seed(0))
+    params = convert.yolo_params(net)
+    if planted:
+        w = params["model.13.cv3.0.2.weight"]
+        w[0] = 0.0
+        w[0, PERSON_CHANNEL] = PERSON_WEIGHT
+        params["model.13.cv3.0.2.bias"][0] = PERSON_BIAS
+    else:
+        params["model.13.cv3.0.2.bias"][0] = TIED_BIAS
+    return params
 
 
 @pytest.fixture(scope="module")
@@ -62,9 +95,7 @@ def workdir(tmp_path_factory, one_torch_thread):  # noqa: F811
     synthetic = SyntheticDataset(None, "", syn, device="cpu")
     write_tum_format(synthetic, str(root / "seq"), depth_scale=5000.0)
     write_cofusion_format(synthetic, str(root / "seq_cofusion"), depth_scale=5000.0)
-    net = Y.init_weights(Y.Yolov9SegNet(TINY_FULL), torch.Generator().manual_seed(0))
-    params = convert.yolo_params(net)
-    params["model.13.cv3.0.2.bias"][0] = PERSON_BIAS
+    params = _params(planted=True)
     os.makedirs(root / "pretrained")
     save_pytree_npz(str(root / "pretrained" / "yolov9e-seg.npz"), params,
                     meta={"cfg": TINY_FULL})
@@ -97,6 +128,76 @@ def runs(workdir):
         cli.main(argv + ["--device", "cpu"])
     (jslam,), (tslam,) = j_made, t_made
     return tslam, jslam
+
+
+def _frames(workdir) -> list:
+    """The sequence's N frames as the segmenters see them: (3, H, W) in [0, 1]
+    from the 8-bit PNGs."""
+    from PIL import Image
+
+    paths = sorted((workdir / "seq" / "rgb").glob("*.png"))
+    assert len(paths) == N
+    return [np.array(Image.open(p))[..., :3].astype(np.float32).transpose(2, 0, 1) / 255.0
+            for p in paths]
+
+
+def _reference_outputs(model, chw):
+    """The reference's letterbox and forward of one frame: (boxes, scores,
+    coefficients, prototypes) of the one image as numpy, and (r, dx, dy)."""
+    lb, r, (dx, dy) = JY.letterbox(chw, model.imgsz)
+    outs = [np.asarray(o[0]) for o in model.forward(model.params, lb[None])]
+    return outs, (r, dx, dy)
+
+
+def test_planted_detections_are_well_conditioned(workdir):
+    """On the reference's outputs for every frame, no decision of the
+    post-processing lies within rounding of its threshold: fewer candidates
+    than max_det (NMS keeps them all in reach), every first-level person
+    score at least 1e-4 from conf and, where it is a candidate, from the
+    other classes' scores and from every other candidate's score (the NMS
+    order), and every kept box's edge in frame pixels at least 1e-3 from an
+    integer (where `int()` crops). The two forwards differ by about 1.2e-7
+    in scores, so these margins are some thousand times that."""
+    params = {k: jnp.asarray(v) for k, v in _params(planted=True).items()}
+    model = JY.Yolov9Seg(TINY_FULL, params)
+    kept_any = []
+    for chw in _frames(workdir):
+        (boxes, scores, _, _), (r, dx, dy) = _reference_outputs(model, chw)
+        cls_id, cls_sc = scores.argmax(1), scores.max(1)
+        cand = np.nonzero((cls_sc >= CONF) & (cls_id == 0))[0]
+        assert 0 < len(cand) < MAX_DET
+        assert np.abs(scores[:, 0] - CONF).min() >= 1e-4
+        others = np.max(scores[cand, 1:], axis=1)
+        assert np.all(scores[cand, 0] - others >= 1e-4)
+        assert np.diff(np.sort(scores[cand, 0])).min(initial=1.0) >= 1e-4
+        keep = cand[JY.nms_numpy(boxes[cand], cls_sc[cand], 0.45)]
+        edges = np.concatenate([(boxes[keep][:, [0, 2]] - dx) / r,
+                                (boxes[keep][:, [1, 3]] - dy) / r], 1)
+        assert np.abs(edges - np.round(edges)).min() >= 1e-3
+        kept_any.append(len(keep))
+    assert min(kept_any) > 0, kept_any
+
+
+def test_postprocessing_equals_reference_on_shared_outputs(workdir):
+    """The 25,600-candidate tie of a uniform first-level person bias: the
+    port's `Yolov9Seg.segment` given the reference's own forward outputs
+    (its `outputs` patched here) gives the reference's masks on every pixel
+    of every frame. Both sides then sort and suppress the same numbers, so
+    the masks are equal bit for bit, ties included."""
+    params = _params(planted=False)
+    jmodel = JY.Yolov9Seg(TINY_FULL, {k: jnp.asarray(v) for k, v in params.items()})
+    tmodel = Y.Yolov9Seg(TINY_FULL, params, device="cpu")
+    n_cand = []
+    for chw in _frames(workdir):
+        outs, _ = _reference_outputs(jmodel, chw)
+        n_cand.append(int(((outs[1].max(1) >= CONF) & (outs[1].argmax(1) == 0)).sum()))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tmodel, "outputs", lambda lb, o=outs: o)
+            got = tmodel.segment(chw, [0], conf=CONF)
+        want = jmodel.segment(chw, [0], conf=CONF)
+        np.testing.assert_array_equal(got, want)
+        assert want.any()
+    assert min(n_cand) >= 160 * 160, n_cand
 
 
 def _centre(T):
