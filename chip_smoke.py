@@ -11,8 +11,10 @@ Phases, one line each, in order (any failure exits non-zero):
               every number of views in VIEWS: 1, 2 and 10 (tracking, the
               static phase's mapping, the full static window), 26 (the
               full 4D window: 10 views of RGB and 16 whose colour channels
-              carry signed flow payloads), and the numbers the dynamic
-              and cli phases launch (fourdgs_torch/kernel_check.py: forward
+              carry signed flow payloads), the numbers the dynamic and
+              cli phases launch, and each rank's block of the 4D window
+              in phase 13 (13 views of which 3, and 13 of which 13, carry
+              flow payloads) (fourdgs_torch/kernel_check.py: forward
               outputs, n_contrib and n_touched exactly equal, gradients
               within 1e-5 of each field's largest magnitude); with times
               and bounds
@@ -85,12 +87,14 @@ Phases, one line each, in order (any failure exits non-zero):
               and launches per forward (torch.profiler), and GFLOP per frame
               (convolutions, counted on the meta device) with its bound
  11. kernels  one JSON line: per kernel its launches in the SLAM phase, in
-              the dynamic phase, in the cli phase, in the flow phase and in
-              the two runs of phase 12 (in all, by number of views, and the
-              cli phase's refinement by number of views), largest error
+              the dynamic phase, in the cli phase, in the flow phase, in
+              the two runs of phase 12 and in phase 13's run (in all, by
+              number of views, phase 13's per rank, and the cli phase's
+              refinement by number of views), phase 13's per rank by
+              number of views in its static and 4D chunks, largest error
               against its plain version, times and bound at 10 views (the
               full static window), and (*_1view, *_2view, *_26view) at 1, 2
-              and 26 views; printed after phase 12
+              and 26 views; printed after phase 13
  12. monocular  SLAM(cfg).run() with Training.monocular at bench.py's
               widths and capacity on its 40-frame synthetic sequence,
               written in TUM layout to a temporary directory and read back
@@ -110,6 +114,26 @@ Phases, one line each, in order (any failure exits non-zero):
               port's CPU reproject_mask on the same inputs on at least
               RM_MASK_AGREE of pixels; printed: ms per mask, the share of
               pixels removed
+ 13. mesh     multi-device mapping (fourdgs_torch/parallel/): 2 ranks sharing
+              cuda:0 over gloo (and, with two cards or more, 2 ranks on
+              cuda:0 and cuda:1 over NCCL): the collectives, then map_chunk
+              over the full static window (10 views) at bench.py's widths
+              and capacity against one device after 1 iteration (loss
+              1e-5 relative, map 2e-5, poses 1e-5, denom exact: the
+              tolerances of tests/test_parallel.py) and after MESH_ITERS
+              (loss 2e-3, map 3e-2, poses 2e-3), and map_chunk_dynamic over
+              the full 4D window (26 views) after 1 (the map 2e-5, the
+              field 2e-4), every rank launching both kernels at a number
+              of views held in phase 3; then phase 5's run with the
+              runner's mesh (`slam.mesh`) the 2 ranks on cuda:0, held to
+              phase 5's limits, every rank launching both kernels and no
+              worker importing jax or fourdgs; printed: ms per mapping
+              iteration on one device and on the mesh, static and 4D
+              (4D chunks of 1 and MESH_DYN_ITERS iterations, so that the
+              cost per chunk and per iteration part), each mesh call's
+              seconds sending its arguments, in each rank's work and
+              checksum and waiting (`Mesh.seconds`), collective ms and
+              bytes per iteration, launches per rank by number of views
 then the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -1136,6 +1160,333 @@ def monocular_phase(wrappers) -> dict:
     return {"monocular": mono, "rm_initdy": rm}
 
 
+MESH_RANKS = 2
+MESH_ITERS = 20   # the bounded static chunk of phase 13
+MESH_DYN_ITERS = 5   # the timed 4D chunk of phase 13 (against one of 1 iteration)
+MAIN_VIEWS = 10   # of the 4D window's 26 views, the main ones (flow views after them)
+MESH_FRAMES = 10  # phase 5's run, on the mesh
+
+
+def mesh_state(dynamic: bool):
+    """A runner at the benchmark's widths and capacity (the dynamic one's
+    with `dynamic`) whose map had 100 initialisation iterations on frame 0,
+    with frames 1-9 stored as keyframes in slots 1-9 at their ground-truth
+    poses moved by a seeded perturbation; with `dynamic`, the deformation
+    field made at frame 8 (dystart) as the runner makes it. Returns (slam,
+    frames)."""
+    import numpy as np
+    import torch
+
+    from fourdgs_torch import kernel_check as KC
+    from fourdgs_torch.data.prefetch import iter_frames
+    from fourdgs_torch.geometry.se3 import se3_exp
+    from fourdgs_torch.slam import keyframes as kfs
+    from fourdgs_torch.slam.runner import SLAM
+
+    cfg = KC.bench_dynamic_config(40) if dynamic else KC.bench_config(40)
+    cfg["Training"]["init_itr_num"] = 100
+    slam = SLAM(cfg, dynamic=dynamic, max_frames=10, capacity=KC.CAPACITY,
+                max_capacity=KC.CAPACITY, max_keyframes=64)
+    frames = dict(iter_frames(slam.dataset, slam.edge_threshold, 10, device=slam.device))
+    slam._initialize(frames[0])
+    rng = np.random.default_rng(13)
+    for k in range(1, 10):
+        tau = torch.tensor(rng.normal(0, [0.01, 0.01, 0.01, 0.003, 0.003, 0.003]),
+                           dtype=torch.float32, device=slam.device)
+        T = se3_exp(tau) @ slam._pose_tensor(slam.dataset.poses[k])
+        kfs.store_keyframe(slam.store, k, frames[k], T, np.zeros(2))
+        slam.kf_slot[k], slam.poses_est[k], slam.exposures[k] = k, T.cpu().numpy(), np.zeros(2)
+        slam.kf_indices.append(k)
+    if dynamic and not slam._init_deform(8, frames[8]):
+        raise SystemExit("mesh phase: no dynamic pixel at frame 8")
+    return slam, frames
+
+
+WINDOW_SLOTS = list(range(1, 9))   # phase 13's window: 8 keyframes; replay from slots 0, 9
+
+
+def mesh_static_chunk(slam, iters: int, mesh):
+    """`iters` static mapping iterations over the full window (8 views and
+    2 replay views, poses of the first 3 optimized) from the state of
+    `mesh_state`, on one device (mesh None) or the mesh; binned every
+    iteration on both. Returns (result, seconds)."""
+    import numpy as np
+    import torch
+
+    from fourdgs_torch.slam.keyframes import KeyframeStore
+    from fourdgs_torch.slam.mapping import init_pose_adam, map_chunk
+
+    store = KeyframeStore(*(x.clone() for x in slam.store))
+    picks = np.stack([np.arange(iters) % 2, np.zeros(iters, np.int64)], 1)
+    torch.cuda.synchronize()
+    t = time.time()
+    res = map_chunk(slam.gmap, slam.adam, store, np.asarray(WINDOW_SLOTS), np.ones(8, bool),
+                    np.arange(8) < 3, np.asarray([0, 9]), 2, init_pose_adam(8, slam.device),
+                    picks, iters, -1, 0, slam.intr, slam.map_cfg._replace(rebin_every=1),
+                    mesh=mesh)
+    torch.cuda.synchronize()
+    return res, time.time() - t
+
+
+def mesh_dynamic_chunk(slam, flows, mesh, iters: int):
+    """`iters` 4D mapping iterations over the full 4D window (8 window
+    views, each with its flow pair: the keyframe before it, 2 replay views:
+    26 views) from the state of `mesh_state(dynamic=True)`, binned every
+    iteration, with the draws of a runner seeded alike on every call.
+    Returns (result, seconds)."""
+    import numpy as np
+    import torch
+
+    from fourdgs_torch.slam import mapping_dynamic as mdyn
+    from fourdgs_torch.slam.keyframes import KeyframeStore
+    from fourdgs_torch.slam.mapping import init_pose_adam
+    from fourdgs_torch.utils.draws import TorchDraws
+
+    store = KeyframeStore(*(x.clone() for x in slam.store))
+    draws = TorchDraws(7, slam.device).dynamic_chunk(iters, 2, slam.map_cfg.num_views)
+    torch.cuda.synchronize()
+    t = time.time()
+    res = mdyn.map_chunk_dynamic(
+        slam.gmap, slam.adam, store, slam.deform, slam.deform_adam, np.asarray(WINDOW_SLOTS),
+        np.ones(8, bool), np.arange(8) < 3, np.asarray(WINDOW_SLOTS) - 1, *flows,
+        np.asarray([0, 9]), 2, init_pose_adam(8, slam.device), draws, iters, -1, 0, slam.intr,
+        slam.map_cfg._replace(rebin_every=1), flow_weight=slam.flow_weight,
+        flow_weight_fine=slam.flow_weight_fine, time_interval=slam.time_interval, mesh=mesh)
+    torch.cuda.synchronize()
+    return res, time.time() - t
+
+
+def mesh_blocks() -> list:
+    """(views, of which carry flow payloads) of each rank's block of the
+    4D window in phase 13: [MAIN_VIEWS main | 16 flow] views over
+    MESH_RANKS ranks, as `map_chunk_dynamic` splits them."""
+    import numpy as np
+
+    from fourdgs_torch.slam.mapping import rank_block
+
+    ids = np.arange(26)
+    return [(int(b.size), int((b >= MAIN_VIEWS).sum()))
+            for b in (rank_block(ids, r, MESH_RANKS) for r in range(MESH_RANKS))]
+
+
+def rank_launches(mesh, wrappers, call):
+    """`call()` with rank 0's kernel counts set to 0 just before it.
+    Returns (its result, each rank's launches during it: rank -> kernel ->
+    number of views -> count)."""
+    import copy
+
+    for k in wrappers.values():
+        k.launches_by_views.clear()
+    before = copy.deepcopy(mesh.launches)
+    out = call()
+    by_rank = {0: {name: dict(k.launches_by_views) for name, k in wrappers.items()}}
+    for r, kernels in mesh.launches.items():
+        was = before.get(r, {})
+        by_rank[r] = {name: {v: n - was.get(name, {}).get(v, 0) for v, n in by_v.items()
+                             if n > was.get(name, {}).get(v, 0)}
+                      for name, by_v in kernels.items()}
+    return out, by_rank
+
+
+def launches_held(by_rank, wrappers, held_views) -> bool:
+    """Every rank launched every kernel, at numbers of views held in
+    phase 3 only."""
+    return all(by_rank.get(r, {}).get(name) and set(by_rank[r][name]) <= held_views
+               for r in range(MESH_RANKS) for name in wrappers)
+
+
+def comm_since(mesh, before) -> dict:
+    """Rank 0's collectives since the `before` copy of its stats."""
+    return {k: {f: v[f] - before[k][f] for f in ("calls", "bytes", "seconds")}
+            for k, v in mesh.comm.stats.items()}
+
+
+def _max_diff(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def _map_diffs(a, b) -> dict:
+    """Largest differences of two chunk results: loss (relative), each
+    map field, the store's poses, denom and grad_accum."""
+    d = {name: _max_diff(getattr(a.gmap.params, name), getattr(b.gmap.params, name))
+         for name in ("xyz", "f_dc", "scaling", "rotation", "opacity")}
+    d.update(loss_rel=abs(a.final_loss - b.final_loss) / max(abs(b.final_loss), 1e-30),
+             T_cw=_max_diff(a.store.T_cw, b.store.T_cw),
+             denom=_max_diff(a.gmap.denom, b.gmap.denom),
+             grad_accum=_max_diff(a.gmap.grad_accum, b.gmap.grad_accum))
+    return d
+
+
+def mesh_chunks(mesh, wrappers, held_views) -> dict:
+    """Phase 13 (a) and (b) on `mesh`: the static window after 1 and after
+    MESH_ITERS iterations, and the 4D window after 1, each against one
+    device, every rank's launches at numbers of views in `held_views`;
+    with ms per iteration and the collectives' cost, and the 4D window
+    timed at 1 and MESH_DYN_ITERS iterations."""
+    import numpy as np
+    import torch
+
+    from fourdgs_torch.models.deform import cn_floats, leaves
+
+    out = {"ranks": mesh.size, "backend": mesh.backend,
+           "devices": [str(d) for d in mesh.devices]}
+    bad = []
+    slam, _ = mesh_state(dynamic=False)
+    one, _ = mesh_static_chunk(slam, 1, None)
+    sh, _ = mesh_static_chunk(slam, 1, mesh)
+    d1 = _map_diffs(sh, one)
+    out["static_1"] = d1
+    # tests/test_parallel.py:88-101
+    if not (d1["loss_rel"] <= 1e-5 and max(d1[k] for k in ("xyz", "f_dc", "scaling",
+                                                            "rotation", "opacity")) <= 2e-5
+            and d1["T_cw"] <= 1e-5 and d1["denom"] == 0 and d1["grad_accum"] <= 1e-5):
+        bad.append("static_1")
+    one, t_one = mesh_static_chunk(slam, MESH_ITERS, None)
+    before = {k: dict(v) for k, v in mesh.comm.stats.items()}
+    (sh, t_sh), out["static_launches_by_rank"] = rank_launches(
+        mesh, wrappers, lambda: mesh_static_chunk(slam, MESH_ITERS, mesh))
+    st = comm_since(mesh, before)
+    out["static_call_s"] = mesh.seconds
+    if not launches_held(out["static_launches_by_rank"], wrappers, held_views):
+        bad.append("static_launches")
+    dn = _map_diffs(sh, one)
+    finite = all(bool(torch.isfinite(x).all()) for x in sh.gmap.params)
+    out["static_n"] = dict(dn, iters=MESH_ITERS, finite=finite)
+    # tests/test_parallel.py:231-258, the chunk after the densify
+    if not (finite and dn["loss_rel"] <= 2e-3 and dn["T_cw"] <= 2e-3
+            and max(dn[k] for k in ("xyz", "f_dc", "scaling", "rotation", "opacity")) <= 3e-2):
+        bad.append("static_n")
+    ar = st["allreduce"]
+    out["ms_per_iter_one_device"] = t_one * 1e3 / MESH_ITERS
+    out["ms_per_iter_mesh"] = t_sh * 1e3 / MESH_ITERS
+    out["collective_ms_per_iter"] = (ar["seconds"] * 1e3) / MESH_ITERS
+    out["allreduce_calls_per_iter"] = ar["calls"] / MESH_ITERS
+    out["allreduce_bytes_per_iter"] = ar["bytes"] / MESH_ITERS
+    out["largest_allreduce_bytes"] = mesh.comm.stats["allreduce"]["largest"]
+    out["broadcast_per_chunk"] = st["broadcast"]
+    del slam
+    torch.cuda.empty_cache()
+
+    slam, frames = mesh_state(dynamic=True)
+    flows = [[], []]
+    for uid in WINDOW_SLOTS:
+        from fourdgs_torch.slam import keyframes as kfs
+
+        imgs = kfs.fetch_images(slam.store, [uid, uid - 1])
+        fwd, bwd, _, _ = slam.flow_cache.get(uid, uid - 1, imgs[0], imgs[1])
+        flows[0].append(fwd)
+        flows[1].append(bwd)
+    flows = [torch.as_tensor(np.stack(f), device=slam.device) for f in flows]
+    one, t_one = mesh_dynamic_chunk(slam, flows, None, 1)
+    # the workers' first 4D call, held; then the same call again, timed
+    sh, t_first = mesh_dynamic_chunk(slam, flows, mesh, 1)
+    first_s = mesh.seconds
+    before = {k: dict(v) for k, v in mesh.comm.stats.items()}
+    (_, t_sh), launches = rank_launches(mesh, wrappers,
+                                        lambda: mesh_dynamic_chunk(slam, flows, mesh, 1))
+    comm_1, call_1 = comm_since(mesh, before), mesh.seconds
+    n = MESH_DYN_ITERS
+    one_n, t_one_n = mesh_dynamic_chunk(slam, flows, None, n)
+    before = {k: dict(v) for k, v in mesh.comm.stats.items()}
+    sh_n, t_sh_n = mesh_dynamic_chunk(slam, flows, mesh, n)
+    comm_n, call_n = comm_since(mesh, before), mesh.seconds
+    dd = _map_diffs(sh, one)
+    dd["deform"] = max(_max_diff(a, b) for a, b in zip(leaves(cn_floats(sh.deform)),
+                                                       leaves(cn_floats(one.deform))))
+    per_one, per_mesh = (t_one_n - t_one) / (n - 1), (t_sh_n - t_sh) / (n - 1)
+    dd.update(ms_one_device=t_one * 1e3, ms_mesh_first_call=t_first * 1e3, ms_mesh=t_sh * 1e3,
+              iters_n=n, ms_one_device_n=t_one_n * 1e3, ms_mesh_n=t_sh_n * 1e3,
+              ms_per_iter_one_device=per_one * 1e3, ms_per_iter_mesh=per_mesh * 1e3,
+              ms_per_chunk_one_device=(t_one - per_one) * 1e3,
+              ms_per_chunk_mesh=(t_sh - per_mesh) * 1e3,
+              call_s_first=first_s, call_s_1=call_1, call_s_n=call_n,
+              comm_1=comm_1, comm_n=comm_n, launches_by_rank=launches,
+              finite_n=all(bool(torch.isfinite(x).all()) for x in sh_n.gmap.params)
+              and all(bool(torch.isfinite(x).all()) for x in one_n.gmap.params),
+              dynamic_gaussians=int((slam.gmap.dygs & slam.gmap.alive).sum()))
+    out["dynamic_1"] = dd
+    if not launches_held(launches, wrappers, held_views):
+        bad.append("dynamic_launches")
+    if not dd["finite_n"]:
+        bad.append("dynamic_n")
+    # tests/test_parallel.py:150-168
+    if not (dd["loss_rel"] <= 1e-5 and max(dd[k] for k in ("xyz", "f_dc", "scaling",
+                                                            "rotation", "opacity")) <= 2e-5
+            and dd["deform"] <= 2e-4 and dd["T_cw"] <= 1e-5 and dd["grad_accum"] <= 1e-5):
+        bad.append("dynamic_1")
+    out["bad"] = bad
+    del slam
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(wrappers, held_views) -> dict:
+    """Phase 13: multi-device mapping. 2 ranks sharing cuda:0 over gloo
+    (and, with two cards or more, 2 ranks on cuda:0 and cuda:1 over NCCL):
+    (a) and (b) `mesh_chunks`; (c) phase 5's run with the runner's mesh
+    (`slam.mesh`) the 2 ranks on cuda:0, held to phase 5's limits, every
+    rank launching both kernels. `held_views`: the numbers of views
+    phase 3 held the kernels at."""
+    import numpy as np
+    import torch
+
+    from fourdgs_torch import kernel_check as KC
+    from fourdgs_torch.parallel import make_mesh
+    from fourdgs_torch.parallel.comm import exercise
+    from fourdgs_torch.slam.runner import SLAM
+
+    placements = [["cuda:0"] * MESH_RANKS]
+    if torch.cuda.device_count() >= MESH_RANKS:
+        placements.append([f"cuda:{i}" for i in range(MESH_RANKS)])
+    out = {"runs": []}
+    for devices in placements:
+        with make_mesh(MESH_RANKS, devices) as mesh:
+            x = torch.randn((MESH_RANKS, 4 * MESH_RANKS, 3), device=mesh.devices[0])
+            got = mesh.run(exercise, x)
+            ok = (torch.allclose(got["psum"], x.sum(0), rtol=1e-6, atol=1e-6)
+                  and torch.equal(got["all_gather"], x.reshape(-1, 3))
+                  and torch.equal(got["pmax"], x.max(0).values))
+            r = mesh_chunks(mesh, wrappers, held_views)
+            r["collectives_ok"] = ok
+            out["runs"].append(r)
+            log("mesh chunks: " + json.dumps(r))
+            if r["bad"] or not ok:
+                raise SystemExit(f"mesh phase: sharded chunks disagree with one device: {r}")
+    out["backends"] = [r["backend"] for r in out["runs"]]
+
+    slam = SLAM(KC.bench_config(40), max_frames=MESH_FRAMES, capacity=KC.CAPACITY,
+                max_capacity=KC.CAPACITY, max_keyframes=64)
+    mesh = make_mesh(MESH_RANKS, ["cuda:0"] * MESH_RANKS)
+    slam.mesh = mesh
+    for k in wrappers.values():
+        k.launches_by_views.clear()
+    metrics = slam.run()
+    by_rank = {0: {name: dict(k.launches_by_views) for name, k in wrappers.items()}}
+    by_rank.update({r: {name: dict(v) for name, v in ks.items()}
+                    for r, ks in mesh.launches.items()})
+    rend = slam.eval_rendering()
+    ate = slam.eval_ate()["rmse"]
+    run = {"ate_rmse_m": ate, "psnr": rend["mean_psnr"], "l1_depth": rend["mean_l1_depth"],
+           "keyframes": list(slam.kf_indices), "gaussians": slam.gmap.num_alive,
+           "phase_s": metrics["phase_s"], "mesh_calls": mesh.calls,
+           "launches_by_rank": by_rank, "centre_err_mm": centre_errors_mm(slam),
+           "workers_imported": mesh.imported}
+    out["slam"] = run
+    log("mesh slam: " + json.dumps(run))
+    if not (ate < 0.05 and rend["mean_psnr"] > 15 and rend["mean_l1_depth"] < 1.2):
+        raise SystemExit(f"mesh SLAM result out of bounds: {run}")
+    if not all(np.isfinite(slam.poses_est[i]).all() for i in slam.poses_est):
+        raise SystemExit("non-finite pose in the mesh phase")
+    if not launches_held(by_rank, wrappers, held_views):
+        raise SystemExit("a rank of the mesh SLAM run launched a kernel no time, or at a number "
+                         f"of views phase 3 did not hold: {by_rank}")
+    if any(run["workers_imported"]):
+        raise SystemExit(f"a mesh worker imported jax or fourdgs: {run['workers_imported']}")
+    del slam
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1180,6 +1531,7 @@ def main() -> int:
     slam, frames = KC.sample_map()
     compare = {}
     shapes = [(v, FLOW_VIEWS.get(v, 0)) for v in VIEWS] + list(FLOW_SHAPES)
+    shapes += [b for b in mesh_blocks() if b not in shapes]
     for views, n_flow in shapes:
         key = views if n_flow == FLOW_VIEWS.get(views, 0) else f"{views}_{n_flow}flow"
         compare[key] = r = compare_kernels(slam, views, seed=views + n_flow, n_flow=n_flow)
@@ -1349,6 +1701,12 @@ def main() -> int:
     mono, rm = record["monocular"], record["rm_initdy"]
     log(f"phase monocular: {time.time() - t:.1f}s")
 
+    # ---- phase 13: multi-device mapping, 2 ranks on the card
+    t = time.time()
+    mesh = mesh_phase(wrappers, {v for v, _ in shapes})
+    record["mesh"] = mesh
+    log(f"phase mesh: {time.time() - t:.1f}s")
+
     # ---- phase 11: the kernels line; ms, plain_ms and bound_ms are at 10
     # views (the full static window), the *_1view, *_2view and *_26view
     # keys at tracking's shape, the static phase's mapping and the full 4D
@@ -1372,6 +1730,15 @@ def main() -> int:
              "launches_by_views_monocular": mono["launches_by_views"][name],
              "launches_rm_initdy": rm["launches"][name],
              "launches_by_views_rm_initdy": rm["launches_by_views"][name],
+             "launches_mesh": sum(sum(r[name].values())
+                                  for r in mesh["slam"]["launches_by_rank"].values()),
+             "launches_by_views_mesh": {rank: r[name] for rank, r in
+                                        mesh["slam"]["launches_by_rank"].items()},
+             "launches_by_views_mesh_static": {
+                 rank: r[name] for rank, r in mesh["runs"][0]["static_launches_by_rank"].items()},
+             "launches_by_views_mesh_4d": {
+                 rank: r[name] for rank, r in
+                 mesh["runs"][0]["dynamic_1"]["launches_by_rank"].items()},
              "max_abs_err": max(r["err"][k] for r in compare.values() for k in err_keys),
              **{key: compare[10][src] for key, src in timed.items()}, "library_ms": None}
         for v in (1, 2, 26):

@@ -65,31 +65,34 @@ def main(argv=None) -> dict:
 
     from fourdgs_torch.slam.runner import SLAM
 
-    slam = SLAM(config, save_dir=save_dir, save_interval=args.interval, dynamic=args.dynamic,
-                max_frames=args.max_frames, capacity=args.capacity, device=device)
-    if args.resume:
-        slam.load_checkpoint(args.resume)
-        Log(f"Resumed from {args.resume} (iteration {slam.iteration_count})")
-    metrics = slam.run()
-    if args.checkpoint:
-        slam.save_checkpoint(args.checkpoint)
-        Log(f"Checkpoint saved to {args.checkpoint}")
+    # the with block keeps a mesh (Training.mesh_devices) open from the run
+    # through colour refinement, and closes it at the end or on an error
+    with SLAM(config, save_dir=save_dir, save_interval=args.interval, dynamic=args.dynamic,
+              max_frames=args.max_frames, capacity=args.capacity, device=device) as slam:
+        if args.resume:
+            slam.load_checkpoint(args.resume)
+            Log(f"Resumed from {args.resume} (iteration {slam.iteration_count})")
+        metrics = slam.run()
+        if args.checkpoint:
+            slam.save_checkpoint(args.checkpoint)
+            Log(f"Checkpoint saved to {args.checkpoint}")
 
-    if config["Results"].get("eval_rendering", False):
-        ate = slam.eval_ate("final")
-        Log(f"ATE RMSE: {ate['rmse']:.4f} m", tag="Eval")
-        # metrics over every frame; --interval strides the image dumps only
-        before = slam.eval_rendering("before_opt")
-        Log(f"before_opt: {before}", tag="Eval")
-        slam.save("final_before_opt")
-        slam.color_refinement(int(config["Training"].get("refinement_iters", 1500)))
-        after = slam.eval_rendering("after_opt")
-        Log(f"after_opt: {after}", tag="Eval")
-        metrics.update({"ate_rmse": ate["rmse"], "psnr_before": before["mean_psnr"],
-                        "psnr_after": after["mean_psnr"], "ssim_after": after["mean_ssim"],
-                        "l1_depth_after": after["mean_l1_depth"],
-                        "lpips_before": before["mean_lpips"], "lpips_after": after["mean_lpips"]})
-    slam.save("final")
+        if config["Results"].get("eval_rendering", False):
+            ate = slam.eval_ate("final")
+            Log(f"ATE RMSE: {ate['rmse']:.4f} m", tag="Eval")
+            # metrics over every frame; --interval strides the image dumps only
+            before = slam.eval_rendering("before_opt")
+            Log(f"before_opt: {before}", tag="Eval")
+            slam.save("final_before_opt")
+            slam.color_refinement(int(config["Training"].get("refinement_iters", 1500)))
+            after = slam.eval_rendering("after_opt")
+            Log(f"after_opt: {after}", tag="Eval")
+            metrics.update({"ate_rmse": ate["rmse"], "psnr_before": before["mean_psnr"],
+                            "psnr_after": after["mean_psnr"], "ssim_after": after["mean_ssim"],
+                            "l1_depth_after": after["mean_l1_depth"],
+                            "lpips_before": before["mean_lpips"],
+                            "lpips_after": after["mean_lpips"]})
+        slam.save("final")
     Log(f"Done. metrics={metrics}")
     return metrics
 

@@ -11,6 +11,9 @@ to the loss or the statistics, so they are not rendered at all.
 
 Window-view tile bins are recomputed every `rebin_every` iterations (the
 reference's round structure); replay views are binned every iteration.
+With a mesh (`parallel.Mesh`) each iteration's views are split over its
+ranks, whose gradients are summed; the chunk's loop is the same on one
+device, run as a group of one rank.
 The densify / opacity-reset cadence runs on the host between chunks.
 
 With `MappingConfig.monocular` the loss is RGB only (`mapping_loss_rgb`).
@@ -49,6 +52,7 @@ from fourdgs_torch.ops.rasterize.api import (
     rasterize_multi,
 )
 from fourdgs_torch.ops.rasterize.binning import cat_bins
+from fourdgs_torch.parallel.comm import Comm
 from fourdgs_torch.slam.camera import Intrinsics
 from fourdgs_torch.slam.keyframes import KeyframeStore, fetch_images
 from fourdgs_torch.slam.losses import isotropic_loss, mapping_loss_rgb, mapping_loss_rgbd
@@ -144,6 +148,149 @@ def refine_loss(images_ab, images_gt, depth, depth_gt, motion):
             + 0.1 * l1d)
 
 
+def _view_losses(params, gmap: GaussianMap, store: KeyframeStore, slots: torch.Tensor,
+                 ems, proj, intr: Intrinsics, cfg: MappingConfig, bins=None):
+    """One batched render of the views at store slots `slots` and their
+    per-view losses, with the leaves the gradients are taken at: returns
+    (per-view losses, render outputs, dtaus (V, 6), dexps (V, 2), taps
+    (V, capacity, 2)). `ems`: (V, H, W) bool extra masks or None; `bins`
+    None bins afresh."""
+    dev = gmap.alive.device
+    nv = slots.shape[0]
+    dtaus = torch.zeros((nv, 6), device=dev, requires_grad=True)
+    dexps = torch.zeros((nv, 2), device=dev, requires_grad=True)
+    taps = torch.zeros((nv, gmap.capacity, 2), device=dev, requires_grad=True)
+    T_vs = se3_exp(dtaus) @ store.T_cw[slots]
+    exp_abs = store.exposure[slots] + dexps
+    out = rasterize_multi(*_activated(params), gmap.alive, T_vs, proj,
+                          torch.zeros(3, device=dev), mean2d_offsets=taps,
+                          config=cfg.raster, bins=bins, **intr.raster_kw())
+    images_ab = (torch.exp(exp_abs[:, 0])[:, None, None, None] * out.color
+                 + exp_abs[:, 1][:, None, None, None])
+    if cfg.refine:
+        per_view = refine_loss(images_ab, fetch_images(store, slots), out.depth,
+                               store.depths[slots], store.motion[slots])
+    elif cfg.monocular:
+        per_view = mapping_loss_rgb(images_ab, fetch_images(store, slots),
+                                    rgb_boundary_threshold=cfg.rgb_boundary_threshold)
+    else:
+        per_view = mapping_loss_rgbd(
+            images_ab, out.depth, fetch_images(store, slots), store.depths[slots],
+            motion_mask=store.motion[slots], alpha=cfg.alpha,
+            rgb_boundary_threshold=cfg.rgb_boundary_threshold,
+            rm_dynamic=cfg.rm_dynamic, extra_mask=ems,
+        )
+    return per_view, out, dtaus, dexps, taps
+
+
+def _map_step(gmap: GaussianMap, adam: AdamState, g_params, i: int, step_after: int,
+              iter_base: int, cfg: MappingConfig):
+    """The map parameters' Adam step of iteration i, gated by i >
+    step_after, at the xyz learning rate of the global iteration count."""
+    if i <= step_after:
+        return gmap, adam
+    adv = max(0, i - max(step_after + 1, 0))
+    mult = expon_lr(float(iter_base + adv), 1.0, cfg.xyz_lr_ratio,
+                    max_steps=cfg.xyz_lr_max_steps)
+    p2, adam = adam_step(gmap.params, g_params, adam, cfg.lrs, gmap.alive, xyz_lr_mult=mult)
+    return gmap._replace(params=p2), adam
+
+
+def _pose_step(pose_adam: PoseAdam, gp: torch.Tensor, mask8: torch.Tensor,
+               pose_lr: torch.Tensor, store: KeyframeStore, act: torch.Tensor,
+               slots: torch.Tensor) -> PoseAdam:
+    """The pose and exposure Adam step of the window views from their
+    (Vw, 8) gradients [trans, rot, exposure]; the views `act` (at store
+    `slots`) move, in place in `store`."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    gp = gp * mask8
+    count = pose_adam.count + 1
+    mu = b1 * pose_adam.mu + (1 - b1) * gp
+    nu = b2 * pose_adam.nu + (1 - b2) * gp * gp
+    step = pose_lr[None] * (mu / (1 - b1**count)) / (torch.sqrt(nu / (1 - b2**count)) + eps)
+    upd8 = (-step * mask8)[act]
+    store.T_cw[slots] = se3_exp(upd8[:, :6]) @ store.T_cw[slots]
+    store.exposure[slots] = store.exposure[slots] + upd8[:, 6:8]
+    return PoseAdam(mu=mu, nu=nu, count=count)
+
+
+def _pose_mask(store: KeyframeStore, window_slots: np.ndarray, window_valid: np.ndarray,
+               opt_pose: np.ndarray, dev) -> torch.Tensor:
+    """The (Vw, 8) step mask of the window views' [trans, rot, exposure]:
+    pose rows for valid views with uid != 0 and opt_pose, exposure rows for
+    valid views with uid != 0."""
+    uid_ok = (store.uids[torch.as_tensor(window_slots, device=dev, dtype=torch.long)]
+              .cpu().numpy() != 0) & window_valid
+    return torch.as_tensor(
+        np.concatenate([np.repeat((opt_pose & uid_ok)[:, None], 6, 1),
+                        np.repeat(uid_ok[:, None], 2, 1)], 1),
+        dtype=torch.float32, device=dev,
+    )
+
+
+def _pose_lr(cfg: MappingConfig, dev) -> torch.Tensor:
+    """(8,) learning rates of a window view's [trans, rot, exposure]."""
+    return torch.tensor([cfg.lr_trans] * 3 + [cfg.lr_rot] * 3 + [cfg.lr_exposure] * 2,
+                        device=dev)
+
+
+def _replay_slots(picks_i, rand_pool: np.ndarray, size: int, vr: int) -> np.ndarray:
+    """The iteration's replay slots from its raw draws, made distinct."""
+    r1, r2 = int(picks_i[0]), int(picks_i[1])
+    r2 = (r2 + 1 if r2 >= r1 else r2) % size
+    return np.asarray([rand_pool[r1], rand_pool[r2]][:vr])
+
+
+def _plan_views(window_slots: np.ndarray, window_valid: np.ndarray, rand_pool: np.ndarray,
+                rand_pool_size: int, picks, num_iters: int, cfg: MappingConfig):
+    """Every iteration's view set as (num_iters, nv) store slots and
+    validity: [window views | distinct replay picks], or in refine mode
+    the `refine_picks` of the whole pool."""
+    vw, vr, nv = cfg.num_window_views, cfg.num_random_views, cfg.num_views
+    slots = np.zeros((num_iters, nv), np.int64)
+    valid = np.zeros((num_iters, nv), bool)
+    size = max(rand_pool_size, 1)
+    for i in range(num_iters):
+        if cfg.refine:
+            slots[i], valid[i] = refine_picks(picks[i], rand_pool, rand_pool_size, nv)
+        else:
+            slots[i, :vw], valid[i, :vw] = window_slots, window_valid
+            slots[i, vw:] = _replay_slots(picks[i], rand_pool, size, vr)
+            valid[i, vw:] = np.arange(vr) < min(rand_pool_size, vr)
+    return slots, valid
+
+
+def _compact_store(store: KeyframeStore, slots: np.ndarray):
+    """The store's slots `slots` (any order, repeats allowed) as a store
+    of their own, which is what a mesh rank is sent. Returns (that store,
+    the used slots sorted, as a tensor; `local`, a map from a slot of
+    `store` to its index in the new one)."""
+    used = np.unique(slots)
+    local = np.zeros(max(int(used.max(initial=0)) + 1, 1), np.int64)
+    local[used] = np.arange(used.size)
+    idx = torch.as_tensor(used, device=store.valid.device, dtype=torch.long)
+    return KeyframeStore(*(x[idx] for x in store)), idx, local
+
+
+def rank_block(ids: np.ndarray, rank: int, size: int) -> np.ndarray:
+    """Rank `rank`'s contiguous block of the valid view ids `ids`, padded
+    with invalid views to a multiple of `size`. The reference pads the
+    whole view set instead, so that a rank whose block holds only invalid
+    views renders nothing; here every rank renders while there are as
+    many valid views as ranks. The gradients' sum is the same."""
+    block = -(-ids.size // size)
+    return ids[rank * block:(rank + 1) * block]
+
+
+def _cat_some(*bins):
+    """`cat_bins` of those of `bins` that are not None."""
+    out = None
+    for b in bins:
+        if b is not None:
+            out = b if out is None else cat_bins(out, b)
+    return out
+
+
 def map_chunk(
     gmap: GaussianMap,
     adam: AdamState,
@@ -161,127 +308,140 @@ def map_chunk(
     intr: Intrinsics,
     cfg: MappingConfig = MappingConfig(),
     extra_masks: torch.Tensor | None = None,   # (Vw, H, W) bool reprojection masks
+    mesh=None,                  # a parallel.Mesh: the views sharded over its ranks
 ) -> MapChunkResult:
-    dev = gmap.alive.device
-    proj = intr.proj(device=dev)
-    kw = intr.raster_kw()
-    vw, vr = cfg.num_window_views, cfg.num_random_views
+    """The chunk runs as `_map_chunk_rank`: on one device as a group of one
+    rank, or with `mesh` on each of its ranks, each iteration's valid
+    views split in contiguous blocks over them (`rank_block`). A rank is
+    sent the chunk's keyframes once (`_compact_store`); on a mesh every
+    view is binned afresh every iteration, as the reference's mesh
+    branch does."""
     window_slots = np.asarray(window_slots)
     window_valid = np.asarray(window_valid, bool)
-    w_act = np.nonzero(window_valid)[0]          # rendered window views
-    w_slots = torch.as_tensor(window_slots[w_act], device=dev, dtype=torch.long)
-    uid_ok = (store.uids[torch.as_tensor(window_slots, device=dev, dtype=torch.long)]
-              .cpu().numpy() != 0) & window_valid
-    mask8 = torch.as_tensor(
-        np.concatenate([np.repeat((opt_pose & uid_ok)[:, None], 6, 1),
-                        np.repeat(uid_ok[:, None], 2, 1)], 1),
-        dtype=torch.float32, device=dev,
-    )
-    pose_lr = torch.tensor([cfg.lr_trans] * 3 + [cfg.lr_rot] * 3 + [cfg.lr_exposure] * 2,
-                           device=dev)
-    size = max(rand_pool_size, 1)
-    rand_valid = np.arange(vr) < min(rand_pool_size, vr)
-    loss_val = torch.tensor(float("inf"))
-    ov_seen, pm_seen = False, 0
-    rb = max(cfg.rebin_every, 1)
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    dev = store.valid.device
+    slots_all, valid_all = _plan_views(window_slots, window_valid, np.asarray(rand_pool),
+                                       rand_pool_size, picks, num_iters, cfg)
+    mask8 = _pose_mask(store, window_slots, window_valid, np.asarray(opt_pose, bool), dev)
+    if mesh is None:
+        res = _map_chunk_rank(Comm.local(dev), gmap, adam, store, window_slots, window_valid,
+                              mask8, slots_all, valid_all, pose_adam, num_iters, step_after,
+                              iter_base, intr, cfg, extra_masks, max(cfg.rebin_every, 1))
+    else:
+        sent, idx, local = _compact_store(store, np.concatenate(
+            [slots_all[valid_all], window_slots[window_valid]]))
+        res = mesh.run(_map_chunk_rank, gmap, adam, sent,
+                       np.where(window_valid, local[window_slots * window_valid], 0),
+                       window_valid, mask8, np.where(valid_all, local[slots_all * valid_all], 0),
+                       valid_all, pose_adam, num_iters, step_after, iter_base, intr, cfg,
+                       extra_masks, 1)
+        store.T_cw[idx] = res.T_cw
+        store.exposure[idx] = res.exposure
+    return MapChunkResult(gmap=res.gmap, adam=res.adam, store=store, pose_adam=res.pose_adam,
+                          final_loss=res.final_loss, overflow=res.overflow,
+                          num_pairs=res.num_pairs)
 
+
+class _RankResult(NamedTuple):
+    """What every rank holds after `_map_chunk_rank`, bit for bit alike."""
+    gmap: GaussianMap
+    adam: AdamState
+    pose_adam: PoseAdam
+    T_cw: torch.Tensor       # the rank's store's poses and exposures
+    exposure: torch.Tensor
+    final_loss: float
+    overflow: bool
+    num_pairs: int
+
+
+def _map_chunk_rank(comm, gmap: GaussianMap, adam: AdamState, store: KeyframeStore,
+                    window_slots: np.ndarray, window_valid: np.ndarray, mask8: torch.Tensor,
+                    slots_all: np.ndarray, valid_all: np.ndarray, pose_adam: PoseAdam,
+                    num_iters: int, step_after: int, iter_base: int, intr: Intrinsics,
+                    cfg: MappingConfig, extra_masks, rebin_every: int) -> _RankResult:
+    """One rank of `map_chunk`, every rank alike: per iteration, render and
+    differentiate this rank's block of the valid views (`rank_block`),
+    rank 0 adding the isotropic term once; `psum` the loss, the map's
+    gradients, the per-view pose and exposure gradients and the
+    densification statistics; then every rank takes the same steps from the
+    same sums. The overflow and pair count are `pmax`'d once, at the end.
+    The bins of the rank's window views are made every `rebin_every`
+    iterations (its block of them holds for the chunk), the others' every
+    iteration. `slots_all` and `window_slots` index `store`."""
+    dev = comm.device
+    proj = intr.proj(device=dev)
+    vw = cfg.num_window_views
+    nv = slots_all.shape[1]
+    fixed = 0 if cfg.refine else vw     # the leading views whose bins are reused
+    w_act = np.nonzero(window_valid)[0]
+    act = torch.as_tensor(w_act, device=dev, dtype=torch.long)
+    w_slots = torch.as_tensor(window_slots[w_act], device=dev, dtype=torch.long)
+    pose_lr = _pose_lr(cfg, dev)
+    cap = gmap.capacity
+    sizes = [p.numel() for p in gmap.params]
+    n_p = sum(sizes)
+    loss_val = torch.tensor(float("inf"))
+    seen = torch.zeros(2, dtype=torch.long, device=dev)   # overflow, most pairs of a view
     for i in range(num_iters):
-        if cfg.refine:
-            # the whole view set: distinct keyframes from the full pool
-            r_slots, r_valid = refine_picks(picks[i], rand_pool, rand_pool_size,
-                                            cfg.num_views)
-            slots = torch.as_tensor(r_slots[r_valid], device=dev, dtype=torch.long)
-            bins = _views_bins(gmap, store, slots, proj, intr, cfg)
-        else:
-            if i % rb == 0:
-                bins_w = _views_bins(gmap, store, w_slots, proj, intr, cfg)
-            # distinct replay picks from the host pool
-            r1, r2 = int(picks[i, 0]), int(picks[i, 1])
-            r2 = (r2 + 1 if r2 >= r1 else r2) % size
-            r_slots = np.asarray([rand_pool[r1], rand_pool[r2]][:vr])[rand_valid]
-            slots = torch.as_tensor(np.concatenate([window_slots[w_act], r_slots]),
-                                    device=dev, dtype=torch.long)
-            bins = bins_w
+        ids = rank_block(np.nonzero(valid_all[i])[0], comm.rank, comm.size)
+        n_fix = int((ids < fixed).sum())
+        slots = torch.as_tensor(slots_all[i, ids], device=dev, dtype=torch.long)
+        if i % rebin_every == 0:
+            bins_w = _views_bins(gmap, store, slots[:n_fix], proj, intr, cfg) if n_fix else None
+        params = gmap.params.map(lambda x: x.detach().requires_grad_(True))
+        pack = torch.zeros(1 + n_p + nv * 8 + 2 * cap, device=dev)
+        loss = torch.zeros((), device=dev)
+        leaves = list(params)
+        if ids.size:
+            bins = _cat_some(bins_w, _views_bins(gmap, store, slots[n_fix:], proj, intr, cfg)
+                            if ids.size > n_fix else None)
+            seen = torch.maximum(seen, torch.stack([bins.overflow.any().long(),
+                                                    bins.num_pairs.max().long()]))
             ems = None
             if extra_masks is not None:
-                ems = torch.cat([extra_masks[w_act], torch.ones(
-                    (r_slots.size,) + extra_masks.shape[1:], dtype=torch.bool, device=dev)])
-            if r_slots.size:
-                bins = cat_bins(bins_w, _views_bins(gmap, store, slots[len(w_act):],
-                                                    proj, intr, cfg))
-        ov_seen = ov_seen or bool(bins.overflow.any())
-        pm_seen = max(pm_seen, int(bins.num_pairs.max()))
-
-        nv = slots.shape[0]
-        params = gmap.params.map(lambda x: x.detach().requires_grad_(True))
-        dtaus = torch.zeros((nv, 6), device=dev, requires_grad=True)
-        dexps = torch.zeros((nv, 2), device=dev, requires_grad=True)
-        taps = torch.zeros((nv, gmap.capacity, 2), device=dev, requires_grad=True)
-        T_vs = se3_exp(dtaus) @ store.T_cw[slots]
-        exp_abs = store.exposure[slots] + dexps
-        out = rasterize_multi(*_activated(params), gmap.alive, T_vs, proj,
-                              torch.zeros(3, device=dev), mean2d_offsets=taps,
-                              config=cfg.raster, bins=bins, **kw)
-        images_ab = (torch.exp(exp_abs[:, 0])[:, None, None, None] * out.color
-                     + exp_abs[:, 1][:, None, None, None])
-        if cfg.refine:
-            per_view = refine_loss(images_ab, fetch_images(store, slots), out.depth,
-                                   store.depths[slots], store.motion[slots])
-        elif cfg.monocular:
-            per_view = mapping_loss_rgb(images_ab, fetch_images(store, slots),
-                                        rgb_boundary_threshold=cfg.rgb_boundary_threshold)
+                ems = torch.ones((ids.size,) + extra_masks.shape[1:], dtype=torch.bool,
+                                 device=dev)
+                win = ids < vw
+                ems[torch.as_tensor(np.nonzero(win)[0], device=dev)] = extra_masks[
+                    torch.as_tensor(ids[win], device=dev)]
+            per_view, out, dtaus, dexps, taps = _view_losses(params, gmap, store, slots, ems,
+                                                              proj, intr, cfg, bins)
+            loss = torch.sum(per_view)
+            leaves += [dtaus, dexps, taps]
+        if comm.rank == 0:
+            loss = loss + cfg.isotropic_weight * isotropic_loss(torch.exp(params.scaling),
+                                                                gmap.alive)
+        if loss.requires_grad:
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         else:
-            per_view = mapping_loss_rgbd(
-                images_ab, out.depth, fetch_images(store, slots), store.depths[slots],
-                motion_mask=store.motion[slots], alpha=cfg.alpha,
-                rgb_boundary_threshold=cfg.rgb_boundary_threshold,
-                rm_dynamic=cfg.rm_dynamic, extra_mask=ems,
-            )
-        iso = cfg.isotropic_weight * isotropic_loss(torch.exp(params.scaling), gmap.alive)
-        loss = torch.sum(per_view) + iso
-        grads = torch.autograd.grad(loss, list(params) + [dtaus, dexps, taps])
-        g_params = type(gmap.params)(*grads[:5])
-        g_taus, g_exps, g_taps = grads[5:]
-
+            grads = [torch.zeros_like(x) for x in leaves]
         with torch.no_grad():
-            loss_val = loss.detach()
-            # densification stats (radii > 0 on the rendered views)
-            upd = (out.radii > 0).to(torch.float32)
-            norms = torch.linalg.norm(g_taps, dim=-1)
-            gmap = gmap._replace(
-                grad_accum=gmap.grad_accum + torch.sum(norms * upd, dim=0),
-                denom=gmap.denom + torch.sum(upd, dim=0),
-            )
-            if i > step_after:
-                adv = max(0, i - max(step_after + 1, 0))
-                mult = expon_lr(float(iter_base + adv), 1.0, cfg.xyz_lr_ratio,
-                                max_steps=cfg.xyz_lr_max_steps)
-                p2, adam = adam_step(gmap.params, g_params, adam, cfg.lrs,
-                                     gmap.alive, xyz_lr_mult=mult)
-                gmap = gmap._replace(params=p2)
+            pack[0] = loss
+            pack[1:1 + n_p] = torch.cat([g.reshape(-1) for g in grads[:5]])
+            if ids.size:
+                g_taus, g_exps, g_taps = grads[5:]
+                g8 = pack[1 + n_p:1 + n_p + nv * 8].view(nv, 8)
+                g8[torch.as_tensor(ids, device=dev)] = torch.cat([g_taus, g_exps], dim=1)
+                upd = (out.radii > 0).to(torch.float32)
+                norms = torch.linalg.norm(g_taps, dim=-1)
+                pack[-2 * cap:-cap] = torch.sum(norms * upd, dim=0)
+                pack[-cap:] = torch.sum(upd, dim=0)
+            pack = comm.psum(pack)
+            loss_val = pack[0]
+            g_params = type(gmap.params)(*(g.view_as(p) for g, p in zip(
+                torch.split(pack[1:1 + n_p], sizes), gmap.params)))
+            gmap = gmap._replace(grad_accum=gmap.grad_accum + pack[-2 * cap:-cap],
+                                 denom=gmap.denom + pack[-cap:])
+            gmap, adam = _map_step(gmap, adam, g_params, i, step_after, iter_base, cfg)
             if cfg.refine:
                 continue
-
-            # pose + exposure step of the window views
             gp = torch.zeros((vw, 8), device=dev)
-            act = torch.as_tensor(w_act, device=dev, dtype=torch.long)
-            gp[act] = torch.cat([g_taus[:len(w_act)], g_exps[:len(w_act)]], dim=1)
-            gp = gp * mask8
-            count = pose_adam.count + 1
-            mu = b1 * pose_adam.mu + (1 - b1) * gp
-            nu = b2 * pose_adam.nu + (1 - b2) * gp * gp
-            step = pose_lr[None] * (mu / (1 - b1**count)) / (
-                torch.sqrt(nu / (1 - b2**count)) + eps)
-            upd8 = (-step * mask8)[act]
-            store.T_cw[w_slots] = se3_exp(upd8[:, :6]) @ store.T_cw[w_slots]
-            store.exposure[w_slots] = store.exposure[w_slots] + upd8[:, 6:8]
-            pose_adam = PoseAdam(mu=mu, nu=nu, count=count)
-
-    return MapChunkResult(
-        gmap=gmap, adam=adam, store=store, pose_adam=pose_adam,
-        final_loss=float(loss_val), overflow=ov_seen, num_pairs=pm_seen,
-    )
+            gp[act] = pack[1 + n_p:1 + n_p + vw * 8].view(vw, 8)[act]
+            pose_adam = _pose_step(pose_adam, gp, mask8, pose_lr, store, act, w_slots)
+    seen = comm.pmax(seen)
+    return _RankResult(gmap=gmap, adam=adam, pose_adam=pose_adam, T_cw=store.T_cw,
+                       exposure=store.exposure, final_loss=float(loss_val),
+                       overflow=bool(seen[0]), num_pairs=int(seen[1]))
 
 
 def window_visibility(gmap: GaussianMap, store: KeyframeStore, window_slots,

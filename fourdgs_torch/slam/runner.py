@@ -195,6 +195,17 @@ class SLAM:
                 self.flow_cache = FlowCache(provider(weights, device=self.device))
                 Log(f"{flow_model.upper()} flow from {weights}")
         self.max_capacity = max_capacity
+        # multi-device mapping: the mapping views sharded over a mesh of
+        # Training.mesh_devices ranks (parallel/mesh.py), on as many cards,
+        # or as many CPU processes with device="cpu"; too few cards raise
+        # here, and the mesh is made at the first mapping call
+        self.mesh_devices = int(tr.get("mesh_devices", 0))
+        self.mesh = None
+        self._held = False
+        if self.mesh_devices > 1:
+            from fourdgs_torch.parallel.mesh import placement
+
+            placement(self.mesh_devices, self._mesh_placement())
         self.raster = RasterConfig()
         self.track_cfg = TrackingConfig(
             max_iters=self.tracking_itr_num,
@@ -244,6 +255,47 @@ class SLAM:
         self.initialized = not self.monocular
         self.metrics: dict = {}
         self._phase = _zero_phases()
+
+    def _mesh_placement(self):
+        """The mesh's devices: the CPU's processes with device="cpu", else
+        the default (one card per rank)."""
+        return [self.device] * self.mesh_devices if self.device.type == "cpu" else None
+
+    def _mapping_mesh(self):
+        """The mesh the mapping calls shard their views over (None: one
+        device). Made from Training.mesh_devices at the first call, and
+        again after a close."""
+        if self.mesh_devices > 1 and (self.mesh is None or self.mesh.closed):
+            from fourdgs_torch.parallel import make_mesh
+
+            self.mesh = make_mesh(self.mesh_devices, self._mesh_placement())
+            rank0 = self.device if self.device.type == "cpu" else torch.device(
+                "cuda", self.device.index or 0)
+            if self.mesh.devices[0] != rank0:
+                self.mesh.close()
+                raise ValueError(f"mesh rank 0 is on {self.mesh.devices[0]}, the runner on "
+                                 f"{self.device}")
+        return self.mesh
+
+    def close(self):
+        """Stop the mesh's workers, if a mesh is open."""
+        if self.mesh is not None:
+            self.mesh.close()
+
+    def __enter__(self) -> "SLAM":
+        """Inside a `with` block the mesh lives until the block ends;
+        otherwise `run()` and `color_refinement()` each close it at their
+        end."""
+        self._held = True
+        return self
+
+    def __exit__(self, *exc):
+        self._held = False
+        self.close()
+
+    def _end_call(self):
+        if not self._held:
+            self.close()
 
     def _note_pairs(self, num_pairs: int, overflow: bool):
         self.max_pairs_seen = max(self.max_pairs_seen, int(num_pairs))
@@ -308,6 +360,7 @@ class SLAM:
             self.gmap, self.adam, self.store, slots, valid, opt_pose, pool, pool_size,
             pose_adam, self.draws.replay_picks(chunk, pool_size), chunk, step_after,
             self.iteration_count, self.intr, self.map_cfg, extra_masks=extra_masks,
+            mesh=self._mapping_mesh(),
         )
         self._note_pairs(res.num_pairs, res.overflow)
         self.gmap, self.adam, self.store = res.gmap, res.adam, res.store
@@ -571,7 +624,7 @@ class SLAM:
             self.draws.dynamic_chunk(total_iters, pool_size, nv),
             total_iters, step_after, self.iteration_count, self.intr, self.map_cfg,
             flow_weight=self.flow_weight, flow_weight_fine=self.flow_weight_fine,
-            time_interval=self.time_interval,
+            time_interval=self.time_interval, mesh=self._mapping_mesh(),
         )
         self._phase["dyn_mapping"] += time.time() - _pt
         self._phase["dyn_iters"] += total_iters
@@ -631,7 +684,14 @@ class SLAM:
 
     def run(self) -> dict:
         """Process the sequence; returns frames/s, the map size and the
-        seconds spent per phase."""
+        seconds spent per phase. The mesh, if any, is closed at the end,
+        unless the runner is used in a `with` block."""
+        try:
+            return self._run()
+        finally:
+            self._end_call()
+
+    def _run(self) -> dict:
         t0 = time.time()
         self._phase = _zero_phases()
         last_kf = 0
@@ -711,7 +771,15 @@ class SLAM:
         """Global colour refinement: every iteration maps `num_views`
         distinct keyframes drawn uniformly from the whole history, the map
         parameters alone stepping, their learning rate scheduled from the
-        refinement's own iteration count."""
+        refinement's own iteration count; on the mesh of
+        Training.mesh_devices ranks when that asks for one (closed at the
+        end, as `run()` closes it)."""
+        try:
+            self._color_refinement(iterations)
+        finally:
+            self._end_call()
+
+    def _color_refinement(self, iterations: int):
         vw = self.map_cfg.num_window_views
         pool = [self.kf_slot[k] for k in self.kf_indices]
         # the pool padded to a power of two of at least 8: the draws are one
@@ -722,7 +790,7 @@ class SLAM:
             self.gmap, self.adam, self.store, np.zeros(vw, np.int64), np.zeros(vw, bool),
             np.zeros(vw, bool), pool_full, len(pool), init_pose_adam(vw, self.device),
             self.draws.refine_chunk(iterations, len(pool_full)), iterations, -1, 0,
-            self.intr, self.map_cfg._replace(refine=True),
+            self.intr, self.map_cfg._replace(refine=True), mesh=self._mapping_mesh(),
         )
         self._note_pairs(res.num_pairs, res.overflow)
         self.gmap, self.adam, self.store = res.gmap, res.adam, res.store
