@@ -14,7 +14,11 @@ Phases, one line each, in order (any failure exits non-zero):
               carry signed flow payloads), the numbers the dynamic and
               cli phases launch, and each rank's block of the 4D window
               in phase 13 (13 views of which 3, and 13 of which 13, carry
-              flow payloads) (fourdgs_torch/kernel_check.py: forward
+              flow payloads); and at 80x60, on the map of `batch_eval
+              --synthetic` (its lower tile row 12 pixels high: the
+              kernels' partial tiles), at each number of views in
+              BATCH_VIEWS, which phase 14's batch_eval launches
+              (fourdgs_torch/kernel_check.py: forward
               outputs, n_contrib and n_touched exactly equal, gradients
               within 1e-5 of each field's largest magnitude); with times
               and bounds
@@ -88,13 +92,14 @@ Phases, one line each, in order (any failure exits non-zero):
               (convolutions, counted on the meta device) with its bound
  11. kernels  one JSON line: per kernel its launches in the SLAM phase, in
               the dynamic phase, in the cli phase, in the flow phase, in
-              the two runs of phase 12 and in phase 13's run (in all, by
+              the two runs of phase 12, in phase 13's run and in phase 14's
+              viewer, view_ply and batch_eval (in all, by
               number of views, phase 13's per rank, and the cli phase's
               refinement by number of views), phase 13's per rank by
               number of views in its static and 4D chunks, largest error
               against its plain version, times and bound at 10 views (the
               full static window), and (*_1view, *_2view, *_26view) at 1, 2
-              and 26 views; printed after phase 13
+              and 26 views; printed after phase 14
  12. monocular  SLAM(cfg).run() with Training.monocular at bench.py's
               widths and capacity on its 40-frame synthetic sequence,
               written in TUM layout to a temporary directory and read back
@@ -134,6 +139,34 @@ Phases, one line each, in order (any failure exits non-zero):
               seconds sending its arguments, in each rank's work and
               checksum and waiting (`Mesh.seconds`), collective ms and
               bytes per iteration, launches per rank by number of views
+ 14. last modules  on phase 5's finished map: the live viewer
+              (fourdgs_torch/gui/viewer.py) with an HTTP port, driven over
+              /ctl (pause holds wait_if_paused, resume, orbit), then
+              VIEWER_UPDATES updates at the last frame on the card (2
+              forward launches at 1 view each, no backward) and one on a
+              CPU copy of the map: the renders (current view, novel view,
+              depth) within RENDER_TOL (tests/test_rasterizer.py's) on
+              RENDER_AGREE of pixels and the colour PNGs within one level
+              on every value, the card's compositor calls equal to the
+              plain version on the same inputs on the card,
+              points.bin the alive count strided to
+              at most 2^15 rows, status.json the frame, the port free after
+              close; fourdgs_torch.view_ply.main on that map saved as PLY,
+              VIEW_PLY_FRAMES orbit frames at 640x480 on the card (one
+              forward launch each) and with --device cpu, the PNGs within
+              one level on every value; HexPlane at
+              4DGaussians' defaults and the hash grid at its defaults on
+              FIELD_POINTS points, forward and backward, card against CPU
+              (values within FIELD_TOL, gradients within FIELD_GRAD_TOL of
+              each largest magnitude); extend_nodes at NODES nodes equal,
+              acc_loss within FIELD_TOL and its gradients ACC_GRAD_TOL;
+              fourdgs_torch.batch_eval --synthetic 1 --frames BATCH_FRAMES
+              on the card held to ATE < 0.05 m and PSNR > 15, every launch
+              at a number of views phase 3 held at 80x60; and
+              load_dataset(type: realsense) raising RuntimeError without
+              pyrealsense2. The kernels line then carries the viewer's and
+              view_ply's launches (launches_viewer, launches_view_ply) and
+              batch_eval's by number of views (launches_by_views_batch_eval)
 then the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -164,6 +197,10 @@ FLOW_VIEWS = {7: 4, 26: 16}   # of those views, how many carry flow payloads
 # held besides: 10 views of which 6 carry flow payloads, the second 4D
 # keyframe of the dynamic and flow phases (4 window views and 3 flow pairs)
 FLOW_SHAPES = ((10, 6),)
+# numbers of views held in phase 3 at 80x60, on batch_eval --synthetic's
+# map: what its run launches (tracking and evaluation 1, mapping its
+# window of at most window_size 3 keyframes)
+BATCH_VIEWS = (1, 2, 3)
 CLI_FRAMES = 44   # keyframes 0, 5, 8 (dystart), 13, ..., 43: ten, for refinement at 10 views
 # keyframes 0, 5, 8 (dystart) and 13, the last frame: two 4D phases, three
 # flow pairs (with 18 frames the script took 659 s on an H100 80GB HBM3 at 700 W)
@@ -262,7 +299,8 @@ def compare_kernels(slam, n_views: int, seed: int, n_flow: int | None = None) ->
     fb, fby = bound(fwd_bytes, fwd_ops)
     bb, bby = bound(bwd_bytes, bwd_ops)
     return {
-        "views": n_views, "flow_views": n_flow, "gaussians": slam.gmap.num_alive,
+        "views": n_views, "flow_views": n_flow, "width": grid.width, "height": grid.height,
+        "gaussians": slam.gmap.num_alive,
         "pairs": n_pairs,
         "kmax": int(bins.tile_count.max()), "visited": visited, "applied": applied,
         "err": held["err"], "ok": held["ok"],
@@ -1487,6 +1525,405 @@ def mesh_phase(wrappers, held_views) -> dict:
     return out
 
 
+# ---- phase 14: the last modules (the live viewer, view_ply, the fields,
+# batch_eval, RealSense) on the card, on phase 5's finished map
+
+RENDER_TOL = {"color": 2e-5, "depth": 2e-4}   # tests/test_rasterizer.py's
+# The viewer's renders, card against a CPU copy of the map: the two
+# devices' float32 projections round differently (entries of the
+# compositor's inputs part by 1e-3 and more, viewer_agreement.py). A
+# pixel's sum then drifts past RENDER_TOL here and there, and a Gaussian
+# whose alpha lies at the 1/255 cut is applied at a pixel on one device and
+# not on the other, which moves that pixel by less than 1/255. So the
+# renders are held within RENDER_TOL on RENDER_AGREE of pixels (at most 30
+# of 640x480, under one 16x16 tile), the colour PNGs within one level on
+# every value, and the kernel on the viewer's own inputs equal to its plain
+# version on the card.
+RENDER_AGREE = 0.9999
+VIEWER_UPDATES = 3       # maybe_update calls on the card (2 forward launches each)
+VIEW_PLY_FRAMES = 4
+FIELD_POINTS = 1 << 15   # bench.py's capacity
+FIELD_TOL = 1e-5         # field values, of each output's largest magnitude, card against CPU
+FIELD_GRAD_TOL = 1e-4    # field gradients, of each field's largest magnitude
+# acc_loss's gradients: its second difference cancels (node positions
+# against differences a thousand times smaller), so float32 rounding reaches
+# about 1e-5 of the largest gradient between two CPUs already
+# (tests/test_torch_deform.py)
+ACC_GRAD_TOL = 1e-3
+NODES = 512              # bench.py --dynamic's control nodes
+BATCH_FRAMES = 15        # scripts/batch_eval.py's default synthetic length
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ctl(port: int, query: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/ctl?{query}", timeout=5) as r:
+        return json.loads(r.read())
+
+
+def _agree(a, b, tol: float) -> dict:
+    """Share of pixels within tol (over every channel), and the largest
+    difference."""
+    d = (a.detach().float().cpu() - b.detach().float().cpu()).abs()
+    if d.dim() == 3:
+        d = d.amax(0)
+    return {"within": float((d <= tol).float().mean()), "max_abs": float(d.max())}
+
+
+def _png_levels(a, b) -> int:
+    """Largest difference of two colour renders as the viewer's PNGs hold
+    them (gui/viewer.py _save_png), in 8-bit levels."""
+    import numpy as np
+
+    u8 = lambda x: (np.clip(x.detach().cpu().numpy(), 0, 1) * 255).astype(np.uint8)  # noqa: E731
+    return int(np.abs(u8(a).astype(int) - u8(b).astype(int)).max())
+
+
+def _same_inputs(calls) -> dict:
+    """The card's compositor calls held against the plain version on the
+    same inputs on the card: equal, as phase 3 holds the kernels
+    (kernel_check.hold)."""
+    import torch
+
+    from fourdgs_torch.ops.rasterize import compositor as C
+
+    err = {"max_abs": 0.0, "unequal_calls": 0}
+    for fields, bins, grid, got in calls:
+        ref = C.composite_forward_plain(fields, bins, grid)
+        err["max_abs"] = max(err["max_abs"], float((got[0] - ref[0]).abs().max()))
+        err["unequal_calls"] += not all(torch.equal(a, b) for a, b in zip(got, ref))
+    return {"calls": len(calls), "err": err, "ok": err["unequal_calls"] == 0}
+
+
+def _launches(wrappers) -> dict:
+    return {name: dict(k.launches_by_views) for name, k in wrappers.items()}
+
+
+def viewer_check(slam, wrappers) -> dict:
+    """The live viewer on phase 5's map: pause, resume and orbit over HTTP,
+    VIEWER_UPDATES updates at the last frame on the card (launches
+    counted), one on a CPU copy of the map, the renders compared; the
+    first update's compositor calls held on their own inputs."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from fourdgs_torch import convert
+    from fourdgs_torch.gui import viewer as V
+    from fourdgs_torch.ops.rasterize import compositor as C
+
+    tmp = tempfile.mkdtemp(prefix="fourdgs_gui_")
+    renders = {}
+    render_views = V.render_views
+    composite_forward = C.composite_forward
+    calls = []   # the card's first two compositor calls: inputs and outputs
+
+    def holding(fields, bins, grid):
+        out = composite_forward(fields, bins, grid)
+        if fields.is_cuda and len(calls) < 2:
+            calls.append((fields, bins, grid, out))
+        return out
+
+    render_ms = []
+
+    def recording(s, T, orbit):
+        dev = torch.device(s.device).type
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t = time.time()
+        out = render_views(s, T, orbit)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            render_ms.append((time.time() - t) * 1e3)
+        renders[dev] = out
+        return out
+
+    V.render_views = recording
+    C.composite_forward = holding
+    port = _free_port()
+    frame = max(slam.poses_est)
+    try:
+        view = V.LiveViewer(os.path.join(tmp, "cuda"), interval=1, serve_port=port)
+        try:
+            paused = _ctl(port, "cmd=pause")["paused"]
+            view.wait_if_paused(timeout=0.2)   # returns after its timeout: still paused
+            held = view.paused
+            resumed = _ctl(port, "cmd=resume")["paused"] is False
+            _ctl(port, "cmd=orbit&yaw=30&x=-20")
+            orbit = view.orbit.copy()
+            for k in wrappers.values():
+                k.launches_by_views.clear()
+            ms = []
+            for _ in range(VIEWER_UPDATES):
+                torch.cuda.synchronize()
+                t = time.time()
+                snap = view.maybe_update(slam, frame)
+                torch.cuda.synchronize()
+                ms.append((time.time() - t) * 1e3)
+            launches = _launches(wrappers)
+            with open(os.path.join(view.dir, "status.json")) as f:
+                status = json.load(f)
+            rows = np.fromfile(os.path.join(view.dir, "points.bin"), np.float32).reshape(-1, 7)
+        finally:
+            view.close()
+        try:
+            _ctl(port, "cmd=resume")
+            port_freed = False
+        except OSError:
+            port_freed = True
+        cpu = types.SimpleNamespace(
+            gmap=convert.gaussian_map_from_arrays(convert.gaussian_map_to_arrays(slam.gmap),
+                                                  "cpu"),
+            poses_est=slam.poses_est, intr=slam.intr, map_cfg=slam.map_cfg,
+            kf_indices=slam.kf_indices, device=torch.device("cpu"))
+        cpu_view = V.LiveViewer(os.path.join(tmp, "cpu"), interval=1)
+        cpu_view.orbit = orbit
+        t = time.time()
+        cpu_view.maybe_update(cpu, frame)
+        cpu_ms = (time.time() - t) * 1e3
+    finally:
+        V.render_views = render_views
+        C.composite_forward = composite_forward
+        shutil.rmtree(tmp, ignore_errors=True)
+    (cur, novel), (ccur, cnovel) = renders["cuda"], renders["cpu"]
+    n_alive = slam.gmap.num_alive
+    step = -(-n_alive // (1 << 15)) if n_alive > (1 << 15) else 1
+    out = {"frame": frame, "orbit": orbit.tolist(), "paused": paused, "held_while_paused": held,
+           "resumed": resumed, "port_freed": port_freed, "status": status,
+           "snapshot": {"n_gaussians": snap.n_gaussians, "n_dynamic": snap.n_dynamic},
+           "points_rows": int(rows.shape[0]), "points_expected": len(range(0, n_alive, step)),
+           "ms_per_update": ms, "render_ms_per_update": render_ms,
+           "cpu_ms_per_update": cpu_ms, "launches_by_views": launches,
+           "same_inputs": _same_inputs(calls),
+           "current": _agree(cur.color, ccur.color, RENDER_TOL["color"]),
+           "novel": _agree(novel.color, cnovel.color, RENDER_TOL["color"]),
+           "depth": _agree(cur.depth, ccur.depth, RENDER_TOL["depth"]),
+           "png_levels": max(_png_levels(cur.color, ccur.color),
+                             _png_levels(novel.color, cnovel.color)),
+           # Gaussians applied at a different number of pixels on the two devices
+           "n_touched_differs": int((cur.n_touched.cpu() != ccur.n_touched).sum()
+                                    + (novel.n_touched.cpu() != cnovel.n_touched).sum()),
+           "novel_differs": float((cur.color - novel.color).abs().max())}
+    fwd, bwd = launches["composite_fwd"], launches["composite_bwd"]
+    ok = (paused and held and resumed and port_freed and status["frame"] == frame
+          and not status["paused"] and out["points_rows"] == out["points_expected"]
+          and fwd == {1: 2 * VIEWER_UPDATES} and not bwd and out["novel_differs"] > 0.05
+          and out["same_inputs"]["calls"] == 2 and out["same_inputs"]["ok"]
+          and out["png_levels"] <= 1
+          and all(out[k]["within"] >= RENDER_AGREE for k in ("current", "novel", "depth")))
+    out["ok"] = ok
+    return out
+
+
+def view_ply_check(slam, wrappers) -> dict:
+    """fourdgs_torch.view_ply.main on phase 5's map saved as PLY:
+    VIEW_PLY_FRAMES orbit frames at 640x480 on the card (launches counted)
+    and on the CPU, the PNGs compared."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from fourdgs_torch import kernel_check as KC
+    from fourdgs_torch import view_ply as VP
+    from fourdgs_torch.io.ply import save_gaussians_ply
+
+    tmp = tempfile.mkdtemp(prefix="fourdgs_ply_")
+    try:
+        ply = os.path.join(tmp, "point_cloud.ply")
+        n = save_gaussians_ply(slam.gmap, ply)
+        common = [ply, "--frames", str(VIEW_PLY_FRAMES)]
+        for k in wrappers.values():
+            k.launches_by_views.clear()
+        torch.cuda.synchronize()
+        t = time.time()
+        cuda_paths = VP.main(common + ["--out", os.path.join(tmp, "cuda")])
+        torch.cuda.synchronize()
+        ms = (time.time() - t) * 1e3 / VIEW_PLY_FRAMES
+        launches = _launches(wrappers)
+        t = time.time()
+        cpu_paths = VP.main(common + ["--out", os.path.join(tmp, "cpu"), "--device", "cpu"])
+        cpu_ms = (time.time() - t) * 1e3 / VIEW_PLY_FRAMES
+        diffs = [np.abs(np.asarray(Image.open(a)).astype(int) - np.asarray(Image.open(b))
+                        .astype(int)) for a, b in zip(cuda_paths, cpu_paths)]
+        shape = np.asarray(Image.open(cuda_paths[0])).shape
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"gaussians": n, "frames": len(cuda_paths), "shape": list(shape),
+           "ms_per_frame": ms, "cpu_ms_per_frame": cpu_ms, "launches_by_views": launches,
+           "within_one_level": min(float((d <= 1).mean()) for d in diffs),
+           "max_level_diff": int(max(d.max() for d in diffs))}
+    out["ok"] = (out["frames"] == VIEW_PLY_FRAMES and shape == (KC.HEIGHT, KC.WIDTH, 3)
+                 and launches["composite_fwd"] == {1: VIEW_PLY_FRAMES}
+                 and not launches["composite_bwd"] and out["max_level_diff"] <= 1)
+    return out
+
+
+def _field_grads(fn, params, x, cots):
+    """Outputs of fn(params, x) and the gradients of sum(out * cot) with
+    respect to params and x, on the device of x, with the ms of the forward
+    and backward."""
+    import torch
+
+    params = [p.detach().clone().requires_grad_(True) for p in params]
+    x = x.detach().clone().requires_grad_(True)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    t = time.time()
+    outs = fn(params, x)
+    grads = torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(outs, cots)), params + [x])
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    return [o.detach() for o in outs], grads, (time.time() - t) * 1e3
+
+
+def _hold(cuda, cpu, tol: float) -> dict:
+    """Largest difference of each tensor pair over the CPU tensor's largest
+    magnitude; ok when all are within tol."""
+    errs = [float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(cuda, cpu)]
+    return {"max_rel_err": max(errs), "ok": max(errs) <= tol}
+
+
+def fields_check() -> dict:
+    """HexPlane at 4DGaussians' defaults and the hash grid at its defaults
+    on FIELD_POINTS points (some outside the box), forward and backward,
+    card against CPU; extend_nodes and acc_loss at NODES control nodes."""
+    import torch
+
+    from fourdgs_torch import convert
+    from fourdgs_torch.models import deform as D
+    from fourdgs_torch.models import hashgrid as HG
+    from fourdgs_torch.models import hexplane as HX
+    from fourdgs_torch.utils.draws import TorchDraws
+
+    gen = torch.Generator().manual_seed(11)
+    x = torch.rand((FIELD_POINTS, 3), generator=gen) * 4.4 - 2.2
+    out = {}
+    for name, params, fn, dims in (
+            ("hexplane", HX.init_hexplane(gen), HX.hexplane_deform, (3, 3, 4)),
+            ("hashgrid", HG.init_hashgrid(gen), HG.hash_deform, (3, 4, 3))):
+        cls = type(params)
+        seq = cls._fields[0]
+        flat = list(getattr(params, seq)) + [getattr(params, f) for f in cls._fields[1:-2]]
+        nseq = len(getattr(params, seq))
+
+        def call(ps, xx, cls=cls, fn=fn, nseq=nseq, box=(params.aabb_min, params.aabb_max)):
+            f = cls(tuple(ps[:nseq]), *ps[nseq:], *(b.to(xx.device) for b in box))
+            return fn(f, xx, 0.4)
+
+        cots = [torch.randn((FIELD_POINTS, d), generator=gen) for d in dims]
+        cpu_o, cpu_g, cpu_ms = _field_grads(call, flat, x, cots)
+        dev = [p.cuda() for p in flat]
+        _field_grads(call, dev, x.cuda(), [c.cuda() for c in cots])   # warm-up
+        cuda_o, cuda_g, ms = _field_grads(call, dev, x.cuda(), [c.cuda() for c in cots])
+        out[name] = {"params": sum(p.numel() for p in flat), "ms_fwd_bwd": ms,
+                     "cpu_ms_fwd_bwd": cpu_ms, "values": _hold(cuda_o, cpu_o, FIELD_TOL),
+                     "grads": _hold(cuda_g, cpu_g, FIELD_GRAD_TOL)}
+
+    # extend_nodes and acc_loss at bench.py --dynamic's 512 nodes, 384 alive
+    draws = TorchDraws(3, "cpu")
+    ws, heads = draws.mlp_init(D.mlp_dims(), [d for _, d, _ in D.HEADS])
+    pts = torch.randn((FIELD_POINTS, 3), generator=gen)
+    cn = D.init_nodes(NODES, pts, torch.ones(FIELD_POINTS, dtype=torch.bool), 384, 0,
+                      D.init_mlp(ws, heads))
+    new_pts = torch.rand((FIELD_POINTS, 3), generator=gen) + 1.5
+    pv = torch.rand(FIELD_POINTS, generator=gen) > 0.3
+    ext = {}
+    for dev in ("cpu", "cuda"):
+        c = convert.control_nodes_from_arrays(convert.control_nodes_to_arrays(cn), dev)
+        ext[dev] = convert.control_nodes_to_arrays(D.extend_nodes(c, new_pts.to(dev),
+                                                                  pv.to(dev), 5))
+    equal = all((ext["cpu"][f] == ext["cuda"][f]).all()
+                for f in ("nodes", "radius_raw", "weight_raw", "valid"))
+    acc = {}
+    for dev in ("cpu", "cuda"):
+        c = convert.control_nodes_from_arrays(convert.control_nodes_to_arrays(cn), dev)
+        like = D.cn_floats(c)
+        flat = D.flatten(like).requires_grad_(True)
+        val = torch.sum(D.acc_loss(D.cn_merge(D.unflatten(flat, like), c.valid),
+                                   torch.tensor([0.3, 0.7], device=dev),
+                                   torch.tensor([0.2, 0.6], device=dev), 0.05))
+        (g,) = torch.autograd.grad(val, flat)
+        acc[dev] = (val.detach(), g)
+    out["extend_nodes"] = {"nodes": NODES, "valid_after": int(ext["cuda"]["valid"].sum()),
+                           "equal": bool(equal), "ok": bool(equal)}
+    val_err = abs(float(acc["cuda"][0]) - float(acc["cpu"][0])) / abs(float(acc["cpu"][0]))
+    grad_err = _hold([acc["cuda"][1]], [acc["cpu"][1]], ACC_GRAD_TOL)
+    out["acc_loss"] = {"value": float(acc["cuda"][0]), "rel_err": val_err,
+                       "grads": grad_err, "ok": val_err <= FIELD_TOL and grad_err["ok"]}
+    out["ok"] = (all(out[k]["values"]["ok"] and out[k]["grads"]["ok"]
+                     for k in ("hexplane", "hashgrid"))
+                 and out["extend_nodes"]["ok"] and out["acc_loss"]["ok"])
+    return out
+
+
+def batch_eval_check(wrappers, held_views) -> dict:
+    """python -m fourdgs_torch.batch_eval --synthetic 1 --frames BATCH_FRAMES
+    on the card, held to PERF.md §2's static limits; both kernels launched,
+    only at numbers of views in held_views (those phase 3 held at 80x60)."""
+    from fourdgs_torch import batch_eval as BE
+
+    tmp = tempfile.mkdtemp(prefix="fourdgs_batch_")
+    for k in wrappers.values():
+        k.launches_by_views.clear()
+    t = time.time()
+    try:
+        (row,) = BE.main(["--synthetic", "1", "--frames", str(BATCH_FRAMES), "--out", tmp])
+        with open(os.path.join(tmp, "summary.json")) as f:
+            summary = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = _launches(wrappers)
+    out = {"row": row, "seconds": time.time() - t, "launches_by_views": launches}
+    out["views_held"] = all(set(v) <= set(held_views) for v in launches.values())
+    out["ok"] = (summary == [row] and row["ate_rmse"] < 0.05 and row["psnr"] > 15
+                 and min(sum(v.values()) for v in launches.values()) > 0 and out["views_held"])
+    return out
+
+
+def realsense_check() -> dict:
+    """load_dataset(type: realsense) without pyrealsense2 (or without a
+    camera) raises RuntimeError."""
+    from fourdgs_torch.data.base import load_dataset
+
+    cfg = {"Dataset": {"type": "realsense", "Calibration": {
+        "fx": 600.0, "fy": 600.0, "cx": 639.5, "cy": 359.5, "width": 1280, "height": 720}}}
+    try:
+        load_dataset(None, "", cfg, device="cuda")
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    return {"raised": raised, "ok": raised is not None}
+
+
+def last_modules_phase(slam, wrappers, batch_views) -> dict:
+    """Phase 14 on phase 5's finished SLAM object; every check must hold.
+    batch_views: the numbers of views phase 3 held at batch_eval's 80x60."""
+    out = {}
+    for name, fn in (("viewer", lambda: viewer_check(slam, wrappers)),
+                     ("view_ply", lambda: view_ply_check(slam, wrappers)),
+                     ("fields", fields_check),
+                     ("batch_eval", lambda: batch_eval_check(wrappers, batch_views)),
+                     ("realsense", realsense_check)):
+        t = time.time()
+        out[name] = fn()
+        out[name]["seconds"] = time.time() - t
+        log(f"last modules, {name}: " + json.dumps(out[name]))
+    bad = [name for name, r in out.items() if not r["ok"]]
+    if bad:
+        raise SystemExit(f"last-modules phase out of bounds: {bad}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1539,6 +1976,15 @@ def main() -> int:
         if not r["ok"]:
             raise SystemExit(f"kernel disagrees with its plain version at {views} views "
                              f"({n_flow} flow): {r['err']}")
+    small, _ = KC.small_map()   # batch_eval's 80x60, partial tiles at the lower edge
+    for views in BATCH_VIEWS:
+        key = f"{views}_{small.intr.width}x{small.intr.height}"
+        compare[key] = r = compare_kernels(small, views, seed=views, n_flow=0)
+        log(f"compare {small.intr.width}x{small.intr.height}x{views}: " + json.dumps(r))
+        if not r["ok"]:
+            raise SystemExit(f"kernel disagrees with its plain version at {views} views, "
+                             f"{small.intr.width}x{small.intr.height}: {r['err']}")
+    del small
     record["compare"] = compare
     log(f"phase compare: {time.time() - t:.1f}s")
 
@@ -1596,6 +2042,7 @@ def main() -> int:
     if not all(np.isfinite(slam.poses_est[i]).all() for i in slam.poses_est):
         raise SystemExit("non-finite pose")
 
+    slam5 = slam   # phase 14 views its finished map
     del slam
     torch.cuda.empty_cache()
 
@@ -1707,6 +2154,14 @@ def main() -> int:
     record["mesh"] = mesh
     log(f"phase mesh: {time.time() - t:.1f}s")
 
+    # ---- phase 14: the last modules, on phase 5's finished map
+    t = time.time()
+    last = last_modules_phase(slam5, wrappers, BATCH_VIEWS)
+    record["last_modules"] = last
+    del slam5
+    torch.cuda.empty_cache()
+    log(f"phase last modules: {time.time() - t:.1f}s")
+
     # ---- phase 11: the kernels line; ms, plain_ms and bound_ms are at 10
     # views (the full static window), the *_1view, *_2view and *_26view
     # keys at tracking's shape, the static phase's mapping and the full 4D
@@ -1739,6 +2194,13 @@ def main() -> int:
              "launches_by_views_mesh_4d": {
                  rank: r[name] for rank, r in
                  mesh["runs"][0]["dynamic_1"]["launches_by_rank"].items()},
+             "launches_viewer": sum(last["viewer"]["launches_by_views"][name].values()),
+             "launches_by_views_viewer": last["viewer"]["launches_by_views"][name],
+             "launches_view_ply": sum(last["view_ply"]["launches_by_views"][name].values()),
+             "launches_by_views_view_ply": last["view_ply"]["launches_by_views"][name],
+             "launches_batch_eval": sum(
+                 last["batch_eval"]["launches_by_views"][name].values()),
+             "launches_by_views_batch_eval": last["batch_eval"]["launches_by_views"][name],
              "max_abs_err": max(r["err"][k] for r in compare.values() for k in err_keys),
              **{key: compare[10][src] for key, src in timed.items()}, "library_ms": None}
         for v in (1, 2, 26):

@@ -11,7 +11,9 @@ flow networks' weights go between the JAX parameter pytree of RAFT and
 GMA and the port's state dict (`flow_state_dict`, `flow_params`), and
 LPIPS's between the two packages' `LpipsWeights` (`lpips_from_arrays`).
 YOLOv9-seg's go between the reference's flat `model.<i>.…` dict and the
-port's state dict (`yolo_params`, `yolo_state_dict`).
+port's state dict (`yolo_params`, `yolo_state_dict`). The HexPlane and
+hash-grid fields go field by field (`hexplane_*`, `hashgrid_*`), their
+planes and tables as lists.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from fourdgs_torch.models.deform import (
     MLPParams,
 )
 from fourdgs_torch.models.gaussian_map import AdamState, GaussianMap, GaussianParams
+from fourdgs_torch.models.hashgrid import HashGridParams
+from fourdgs_torch.models.hexplane import HexPlaneParams
 from fourdgs_torch.slam.keyframes import KeyframeStore
 from fourdgs_torch.slam.mapping_dynamic import DeformAdam
 
@@ -130,6 +134,32 @@ def deform_adam_from_arrays(obj, device) -> DeformAdam:
 def deform_adam_to_arrays(state: DeformAdam) -> dict:
     return {"mu": _floats_to(state.mu), "nu": _floats_to(state.nu),
             "count": np.asarray(state.count, np.int32)}
+
+
+def _field_from(cls, seq_name: str, obj, device):
+    return cls(**{f: tuple(_t(a, device) for a in _get(obj, f)) if f == seq_name
+                  else _t(_get(obj, f), device) for f in cls._fields})
+
+
+def _field_to(p, seq_name: str) -> dict:
+    return {f: [a.detach().cpu().numpy() for a in getattr(p, f)] if f == seq_name
+            else getattr(p, f).detach().cpu().numpy() for f in p._fields}
+
+
+def hexplane_from_arrays(obj, device) -> HexPlaneParams:
+    return _field_from(HexPlaneParams, "planes", obj, device)
+
+
+def hexplane_to_arrays(hp: HexPlaneParams) -> dict:
+    return _field_to(hp, "planes")
+
+
+def hashgrid_from_arrays(obj, device) -> HashGridParams:
+    return _field_from(HashGridParams, "tables", obj, device)
+
+
+def hashgrid_to_arrays(hp: HashGridParams) -> dict:
+    return _field_to(hp, "tables")
 
 
 # ---------------------------------------------------------------------------

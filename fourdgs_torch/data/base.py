@@ -92,8 +92,8 @@ class BaseDataset:
 
 def load_dataset(args, path: str, config, device) -> BaseDataset:
     """Dataset factory by `Dataset.type`: `tum` (also the Bonn layout),
-    `CoFusion` and `synthetic`; `device` is where the synthetic sequence
-    renders. The live RealSense capture is not ported yet."""
+    `CoFusion`, `synthetic` and `realsense` (a live camera); `device` is
+    where the synthetic sequence renders."""
     from fourdgs_torch.data.cofusion import CoFusionDataset
     from fourdgs_torch.data.synthetic import SyntheticDataset
     from fourdgs_torch.data.tum import TUMDataset
@@ -106,5 +106,7 @@ def load_dataset(args, path: str, config, device) -> BaseDataset:
     if dtype == "synthetic":
         return SyntheticDataset(args, path, config, device=device)
     if dtype == "realsense":
-        raise ValueError("dataset type 'realsense' is not ported yet (ROADMAP item 16)")
+        from fourdgs_torch.data.realsense import RealsenseDataset
+
+        return RealsenseDataset(args, path, config)
     raise ValueError(f"Unknown dataset type: {dtype}")

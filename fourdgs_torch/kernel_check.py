@@ -15,7 +15,8 @@ the same way.
 configuration's map after 100 initialisation iterations on frame 0 of the
 synthetic sequence, rendered at its ground-truth poses; optionally with
 the last views carrying the signed flow payload of 4D mapping in their
-colour channels.
+colour channels. `small_map` gives the 80x60 map of `batch_eval
+--synthetic`, whose tiles at the image's lower edge are partial.
 """
 
 from __future__ import annotations
@@ -71,20 +72,33 @@ def bench_dynamic_config(n_frames: int):
     return cfg
 
 
+def _initialised(cfg, **slam_kw):
+    from .data.prefetch import iter_frames
+    from .slam.runner import SLAM
+
+    slam = SLAM(cfg, max_frames=10, **slam_kw)
+    frames = dict(iter_frames(slam.dataset, slam.edge_threshold, 2, device=slam.device))
+    slam._initialize(frames[0])
+    return slam, frames
+
+
 def sample_map():
     """A SLAM object whose map had 100 initialisation iterations on frame 0
     of the synthetic sequence, at the benchmark's widths, on the card;
     with frames 0 and 1."""
-    from .data.prefetch import iter_frames
-    from .slam.runner import SLAM
-
     cfg = bench_config(40)
     cfg["Training"]["init_itr_num"] = 100
-    slam = SLAM(cfg, max_frames=10, capacity=CAPACITY, max_capacity=CAPACITY,
-                max_keyframes=64)
-    frames = dict(iter_frames(slam.dataset, slam.edge_threshold, 2, device=slam.device))
-    slam._initialize(frames[0])
-    return slam, frames
+    return _initialised(cfg, capacity=CAPACITY, max_capacity=CAPACITY, max_keyframes=64)
+
+
+def small_map():
+    """A SLAM object at `batch_eval --synthetic`'s 80x60 configuration,
+    its map initialised on frame 0 as that run initialises it, on the
+    card; with frames 0 and 1. Its last tile row is 12 pixels high (60 =
+    3 x 16 + 12): the kernels' partial tiles."""
+    from .batch_eval import synthetic_config
+
+    return _initialised(synthetic_config())
 
 
 def compositor_inputs(slam, n_views: int, n_flow: int = 0, seed: int = 0):

@@ -1,5 +1,5 @@
 """Control-node deformation field: the "4D" of 4DGS-SLAM (port of
-fourdgs/models/deform.py without `extend_nodes` and `acc_loss`).
+fourdgs/models/deform.py).
 
   - a fixed-capacity set of control nodes (positions, a learnable
     Gaussian-kernel log-radius and node weight) with a validity mask,
@@ -10,7 +10,10 @@ fourdgs/models/deform.py without `extend_nodes` and `acc_loss`).
     node deltas,
   - ARAP: K=10 node connectivity and per-node best-fit rotations by
     batched 3x3 SVD between time samples, stretch energy on the edges,
-  - elastic: variance of edge lengths over jittered time samples.
+  - elastic: variance of edge lengths over jittered time samples,
+  - acceleration: the second difference of node positions at three times
+    (`acc_loss`), and `extend_nodes`, which places new nodes in dead
+    slots; the runner calls neither, as the reference's does not.
 
 Every function takes a leading batch of times where the reference vmaps
 over them: `node_deform` and `warp` take a scalar t or a (T,) vector, the
@@ -167,6 +170,34 @@ def init_nodes(capacity: int, init_points: torch.Tensor, points_valid: torch.Ten
     return ControlNodes(nodes=nodes, radius_raw=radius.expand(capacity).clone(),
                         weight_raw=torch.zeros((capacity, 1), device=dev), valid=valid,
                         mlp=mlp)
+
+
+def extend_nodes(cn: ControlNodes, new_points: torch.Tensor, points_valid: torch.Tensor,
+                 start, sample_number: int = 250) -> ControlNodes:
+    """Control nodes for newly appearing dynamic regions, farthest-point
+    sampled from the valid new points from index `start` into the dead
+    slots (taken in stable order of `valid`, at most as many as are free),
+    at weight 0 and the median log-radius of the nodes. The median is
+    taken as the reference takes it, over every slot with the dead ones
+    NaN: so it is NaN, and log(0.1) is used, whenever a slot is dead."""
+    capacity = cn.nodes.shape[0]
+    dev = cn.nodes.device
+    free = torch.sum(~cn.valid)
+    n_add = int(min(sample_number, capacity))
+    sel = farthest_point_sample(new_points, points_valid, n_add, start)
+    slots = torch.argsort(cn.valid.to(torch.uint8), stable=True)[:n_add]
+    take = (~cn.valid[slots]) & (torch.arange(n_add, device=dev) < free)
+    nan = torch.full_like(cn.radius_raw, float("nan"))
+    med_r = torch.quantile(torch.where(cn.valid, cn.radius_raw, nan), 0.5)
+    med_r = torch.where(torch.isnan(med_r), torch.log(torch.tensor(0.1, device=dev)), med_r)
+    nodes, radius = cn.nodes.clone(), cn.radius_raw.clone()
+    weight, valid = cn.weight_raw.clone(), cn.valid.clone()
+    nodes[slots] = torch.where(take[:, None], new_points[sel], cn.nodes[slots])
+    radius[slots] = torch.where(take, med_r, cn.radius_raw[slots])
+    weight[slots] = torch.where(take[:, None], torch.zeros_like(cn.weight_raw[slots]),
+                                cn.weight_raw[slots])
+    valid[slots] = take | cn.valid[slots]
+    return cn._replace(nodes=nodes, radius_raw=radius, weight_raw=weight, valid=valid)
 
 
 def mlp_forward(mlp: MLPParams, x: torch.Tensor, t: torch.Tensor):
@@ -346,3 +377,18 @@ def elastic_loss(cn: ControlNodes, u0: torch.Tensor, u_samp: torch.Tensor, t: to
     w, idx = elastic_edges(cn, k)
     return elastic_from_nodes(nodes_at(cn, sample_times(u0, u_samp, t, delta_t)), w, idx,
                               cn.valid)
+
+
+def acc_loss(cn: ControlNodes, u: torch.Tensor, t: torch.Tensor, delta_t: float) -> torch.Tensor:
+    """Acceleration regularizer: the norm of the second difference of node
+    positions at t0 - delta_t, t0 and t0 + delta_t, t0 = t + delta_t
+    (u - 0.5) from a uniform draw u, each node's normalized by its own
+    detached value, averaged over all slots with the dead ones 0. A
+    scalar t (and u) gives a scalar, a (V,) vector (V,)."""
+    t0 = t + delta_t * (u - 0.5)
+    ts = torch.stack([t0 - delta_t, t0, t0 + delta_t], dim=-1)
+    n = nodes_at(cn, ts)                                        # (..., 3, M, 3)
+    acc = torch.linalg.vector_norm(n[..., 0, :, :] + n[..., 2, :, :] - 2 * n[..., 1, :, :],
+                                   dim=-1)
+    acc = acc / (acc.detach() + 1e-5)
+    return torch.mean(acc * cn.valid.to(acc.dtype), dim=-1)

@@ -4,7 +4,9 @@
     semantics),
   - `knn_indices`: the control-node neighbours of the 4D path (its blend
     weights are `models/deform.py` `blend_weights`),
-  - `farthest_point_sample`: control-node placement.
+  - `farthest_point_sample`: control-node placement,
+  - `voxel_downsample_mask`: the first point per voxel, on the host (the
+    reference's `native` module, whose numpy fallback this is).
 
 Distances are d^2 = |q|^2 + |r|^2 - 2 q.r, one matmul per query chunk,
 clamped at 0, with invalid references pushed back by a large bias, as in
@@ -15,6 +17,7 @@ lower index, as `lax.top_k` breaks them.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _BIG = 1e10
@@ -96,3 +99,13 @@ def farthest_point_sample(points: torch.Tensor, valid: torch.Tensor, n_samples: 
         min_d2 = torch.minimum(min_d2, _sq_norm(points - points[cur]))
         cur = torch.argmax(torch.where(valid, min_d2, neg_inf))
     return sel
+
+
+def voxel_downsample_mask(points: np.ndarray, voxel: float) -> np.ndarray:
+    """(N,) bool keep-mask of (N, 3) host points: the first point of each
+    voxel of side `voxel`, in input order."""
+    key = np.floor(np.ascontiguousarray(points, np.float32) / voxel).astype(np.int64)
+    _, first = np.unique(key, axis=0, return_index=True)
+    keep = np.zeros(key.shape[0], bool)
+    keep[first] = True
+    return keep

@@ -43,13 +43,11 @@ class Intrinsics(NamedTuple):
                     tan_fovx=self.tan_fovx, tan_fovy=self.tan_fovy)
 
     @classmethod
-    def from_config(cls, config) -> "Intrinsics":
-        c = config["Dataset"]["Calibration"]
-        return cls(
-            fx=float(c["fx"]), fy=float(c["fy"]),
-            cx=float(c["cx"]), cy=float(c["cy"]),
-            width=int(c["width"]), height=int(c["height"]),
-        )
+    def from_dataset(cls, ds) -> "Intrinsics":
+        """The calibration a dataset carries: its config's, or a live
+        camera's own."""
+        return cls(fx=float(ds.fx), fy=float(ds.fy), cx=float(ds.cx), cy=float(ds.cy),
+                   width=int(ds.width), height=int(ds.height))
 
 
 class Frame(NamedTuple):

@@ -52,6 +52,14 @@ loss the pixels of each window view that the first keyframe's static
 depth reprojects onto (keyframes.py `reproject_mask`), computed once per
 phase on the runner's device.
 
+With `Results.use_gui` and a `save_dir`, `run()` drives the live viewer
+(gui/viewer.py, on `Results.gui_port` when set): after each frame's
+tracking it renders on the viewer's interval (`save_interval`) and blocks
+while the viewer is paused; the viewer closes at the end of `run()`. With
+`Results.use_wandb`, the periodic ATE goes to wandb as {"ate", "frame"}
+(without the package, a line is logged and the run goes on). A RealSense
+dataset's own calibration sets the intrinsics.
+
 The port runs on the CUDA device unless `device="cpu"` is passed; with no
 device and no CUDA it raises. It has no fixed pair buffer, so the
 reference's pair-budget ladder and re-runs on overflow are gone; an
@@ -151,9 +159,11 @@ class SLAM:
         self.densify_grad_threshold = float(op.get("densify_grad_threshold", 2e-4))
         ds = config["Dataset"]
 
-        self.intr = Intrinsics.from_config(config)
         self.dataset = load_dataset(None, ds.get("dataset_path", ""), config,
                                     device=self.device)
+        # the dataset's calibration: the YAML's, or a live camera's own
+        # (the reference builds its intrinsics from the YAML: ROADMAP §3)
+        self.intr = Intrinsics.from_dataset(self.dataset)
         if ds.get("type") in ("tum", "CoFusion") and config.get(
                 "model_params", {}).get("dynamic_model", True):
             from fourdgs_torch.perception.segmentation import make_segmenter
@@ -255,6 +265,23 @@ class SLAM:
         self.initialized = not self.monocular
         self.metrics: dict = {}
         self._phase = _zero_phases()
+        self.viewer = None
+        self._wandb = None
+        if config.get("Results", {}).get("use_wandb", False):
+            try:
+                import wandb
+
+                wandb.init(project="fourdgs-slam", config=config.to_plain())
+                self._wandb = wandb
+            except Exception:
+                Log("wandb unavailable; logging disabled")
+
+    def _wandb_log(self, data: dict):
+        if self._wandb is not None:
+            try:
+                self._wandb.log(data)
+            except Exception:
+                pass
 
     def _mesh_placement(self):
         """The mesh's devices: the CPU's processes with device="cpu", else
@@ -278,9 +305,15 @@ class SLAM:
         return self.mesh
 
     def close(self):
-        """Stop the mesh's workers, if a mesh is open."""
+        """Stop the mesh's workers and the live viewer's server, if open."""
         if self.mesh is not None:
             self.mesh.close()
+        self._close_viewer()
+
+    def _close_viewer(self):
+        if self.viewer is not None:
+            self.viewer.close()
+            self.viewer = None
 
     def __enter__(self) -> "SLAM":
         """Inside a `with` block the mesh lives until the block ends;
@@ -689,9 +722,16 @@ class SLAM:
         try:
             return self._run()
         finally:
+            self._close_viewer()
             self._end_call()
 
     def _run(self) -> dict:
+        results = self.config.get("Results", {})
+        if results.get("use_gui", False) and self.save_dir:
+            from fourdgs_torch.gui.viewer import LiveViewer
+
+            self.viewer = LiveViewer(self.save_dir, interval=self.save_interval,
+                                     serve_port=results.get("gui_port"))
         t0 = time.time()
         self._phase = _zero_phases()
         last_kf = 0
@@ -715,6 +755,9 @@ class SLAM:
             self.median_depth = float(res.median_depth)
             self._phase["track"] += time.time() - _pt
             self._phase["track_iters"] += res.n_iters
+            if self.viewer is not None:
+                self.viewer.maybe_update(self, idx)
+                self.viewer.wait_if_paused()   # blocks between frames while paused
 
             check_time = (idx - last_kf) >= self.kf_interval
             # the 4D path makes the dystart frame a keyframe
@@ -746,11 +789,11 @@ class SLAM:
                 last_kf = idx
                 Log(f"KF {idx}: {self.gmap.num_alive} gaussians, window {self.window} "
                     f"({dt:.1f}s)", tag="Backend")
-                results = self.config.get("Results", {})
                 if (results.get("save_trj", False) and self.save_dir
                         and self.kf_total % int(results.get("save_trj_kf_intv", 5)) == 0):
                     stats = self.eval_ate(label=f"frame_{idx}")
                     Log(f"ATE RMSE @ frame {idx}: {stats['rmse']:.4f} m", tag="Eval")
+                    self._wandb_log({"ate": stats["rmse"], "frame": idx})
 
         self._sync()
         elapsed = time.time() - t0

@@ -14,6 +14,7 @@ import copy
 import json
 import os
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -140,12 +141,30 @@ def _centre(T):
     return -T[:3, :3].T @ T[:3, 3]
 
 
+def wandb_stub(fail_init=False):
+    """A `wandb` module that records its calls (`init` raising with
+    `fail_init`)."""
+    stub = types.ModuleType("wandb")
+    stub.inits, stub.logs = [], []
+
+    def init(**kw):
+        if fail_init:
+            raise RuntimeError("no wandb service")
+        stub.inits.append(kw)
+
+    stub.init, stub.log = init, stub.logs.append
+    return stub
+
+
 def test_cli_trajectory_matches_jax_and_checkpoints_cross(sequence, tmp_path, monkeypatch):
     sys.path.insert(0, ROOT)
     import slam as jslam_cli
 
     monkeypatch.setenv("FOURDGS_NO_COMPILE_CACHE", "1")
     monkeypatch.chdir(tmp_path)
+    # both runners log the periodic ATE to a stub wandb
+    wandb = wandb_stub()
+    monkeypatch.setitem(sys.modules, "wandb", wandb)
     # 4 frames at the iteration counts of tests/test_torch_slam.py's parity
     # run: initialisation with one densify, a keyframe at frame 2 with its
     # mapping phase, and tracked frames around it
@@ -153,8 +172,9 @@ def test_cli_trajectory_matches_jax_and_checkpoints_cross(sequence, tmp_path, mo
     cfg["Training"].update(init_itr_num=5, init_gaussian_update=3, tracking_itr_num=6,
                            keyframe_mapping_iters=4, mapping_itr_num=4, kf_interval=2,
                            kf_overlap=1.01)
-    # no evaluation: each run's final map is the one it checkpoints
-    cfg["Results"]["eval_rendering"] = False
+    # no evaluation: each run's final map is the one it checkpoints; the
+    # periodic ATE at every keyframe, into wandb
+    cfg["Results"].update(eval_rendering=False, use_wandb=True, save_trj_kf_intv=1)
     common = ["--max-frames", "4", "--capacity", "4096"]
     # the JAX runner renders through its Pallas kernels in interpret mode,
     # as in tests/test_torch_slam.py, so both sides bin and composite alike
@@ -162,6 +182,8 @@ def test_cli_trajectory_matches_jax_and_checkpoints_cross(sequence, tmp_path, mo
         use_oracle=False, tile_cap=256, max_pairs=1 << 13))
     jslam_cli.main(["--config", _write(tmp_path, cfg, "jax.yaml"), "--checkpoint",
                     str(tmp_path / "jax_ck.npz")] + common)
+    j_logs = list(wandb.logs)
+    wandb.logs.clear()
     monkeypatch.setattr(trunner, "TorchDraws", lambda seed, device: JaxDraws(seed))
     t_made = _recording(trunner, monkeypatch)
     tcfg = copy.deepcopy(cfg)
@@ -169,6 +191,13 @@ def test_cli_trajectory_matches_jax_and_checkpoints_cross(sequence, tmp_path, mo
     cli.main(["--config", _write(tmp_path, tcfg, "port.yaml"), "--device", "cpu",
               "--checkpoint", str(tmp_path / "port_ck.npz")] + common)
     (jslam,), (tslam,) = j_made, t_made
+    t_logs = list(wandb.logs)
+    assert [e["frame"] for e in t_logs] == [e["frame"] for e in j_logs] == [2]
+    for te, je in zip(t_logs, j_logs):
+        assert abs(te["ate"] - je["ate"]) < 1e-3, (te, je)
+    assert [kw["project"] for kw in wandb.inits] == ["fourdgs-slam"] * 2
+    assert type(wandb.inits[1]["config"]) is dict
+    assert wandb.inits[1]["config"]["Dataset"] == dict(wandb.inits[0]["config"]["Dataset"])
 
     assert tslam.dataset.mask_fn is None and jslam.dataset.mask_fn is None
     assert sorted(tslam.poses_est) == sorted(jslam.poses_est) == list(range(4))
@@ -198,6 +227,18 @@ def test_cli_trajectory_matches_jax_and_checkpoints_cross(sequence, tmp_path, mo
     assert ply(tmp_path / "jax_resumed") == port_ply
     resumed = t_made[-1]
     assert resumed.kf_indices == jslam.kf_indices and resumed.window == jslam.window
+
+
+def test_wandb_unavailable_logs_and_runs_on(sequence, tmp_path, monkeypatch, capsys):
+    monkeypatch.setitem(sys.modules, "wandb", wandb_stub(fail_init=True))
+    cfg = _config(sequence, str(tmp_path / "results"), dynamic_model=False)
+    cfg["Results"].update(eval_rendering=False, use_wandb=True, save_trj_kf_intv=1)
+    cfg["Training"].update(init_itr_num=5, tracking_itr_num=4, keyframe_mapping_iters=2,
+                           mapping_itr_num=2, kf_interval=2, kf_overlap=1.01)
+    metrics = cli.main(["--config", _write(tmp_path, cfg), "--max-frames", "3",
+                        "--capacity", "4096", "--device", "cpu"])
+    assert metrics["n_frames"] == 3
+    assert "wandb unavailable; logging disabled" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("dystart", [100, 0])

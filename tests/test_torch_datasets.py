@@ -194,5 +194,5 @@ def test_without_depth_sensor_and_realsense(tum_layouts):
     cfg["Dataset"]["sensor_type"] = "rgb"
     assert load_dataset(None, str(root / "port"), cfg, device="cpu")[0][1] is None
     cfg["Dataset"]["type"] = "realsense"
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(RuntimeError, match="needs pyrealsense2"):
         load_dataset(None, "", cfg, device="cpu")

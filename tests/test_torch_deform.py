@@ -179,3 +179,102 @@ def test_regularizers_and_gradients_match(term):
     assert "mlp0" in nonzero
     if term == "elastic":
         assert {"radius_raw", "weight_raw"} <= set(nonzero)
+
+
+def _fps_start(key, valid):
+    vf = jnp.asarray(valid, jnp.float32)
+    return int(jax.random.choice(key, valid.shape[0], p=vf / jnp.maximum(jnp.sum(vf), 1.0)))
+
+
+@pytest.mark.parametrize("n_valid,sample_number", [(24, 5), (24, 20), (32, 4), (0, 6)])
+def test_extend_nodes_matches(n_valid, sample_number):
+    # 8 dead slots: fewer than the samples (take limited to the free count),
+    # more than them, none (every slot kept, the median a real one), and
+    # all dead (no node to take a median of); the dead slots scattered
+    _, _, jcn, _ = _field(seed=2, node_num=min(max(n_valid, 1), M))
+    rng = np.random.default_rng(n_valid + sample_number)
+    valid = np.zeros(M, bool)
+    valid[rng.permutation(M)[:n_valid]] = True
+    jcn = jcn._replace(valid=jnp.asarray(valid))
+    tcn = convert.control_nodes_from_arrays(jcn, "cpu")
+    new_pts = rng.uniform(1, 2, (200, 3)).astype(np.float32)
+    pv = rng.uniform(size=200) > 0.3
+    key = jax.random.key(n_valid)
+    jout = jd.extend_nodes(jcn, key, jnp.asarray(new_pts), jnp.asarray(pv),
+                           sample_number=sample_number)
+    tout = td.extend_nodes(tcn, _t(new_pts), _t(pv), torch.tensor(_fps_start(key, pv)),
+                           sample_number=sample_number)
+    got, want = convert.control_nodes_to_arrays(tout), convert.control_nodes_to_arrays(
+        convert.control_nodes_from_arrays(jout, "cpu"))
+    for name in ("nodes", "radius_raw", "weight_raw", "valid"):
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    assert int(got["valid"].sum()) == min(M, n_valid + sample_number)
+
+
+def test_extend_nodes_fills_dead_slots():
+    # tests/test_deform.py::test_extend_nodes against the port: 16 of 64
+    # valid, 20 new nodes from a far cloud
+    rng = np.random.default_rng(0)
+    pts = _t(rng.uniform(-1, 1, (256, 3)).astype(np.float32))
+    ws, heads = [torch.zeros(d) for d in td.mlp_dims()], [torch.zeros((256, d))
+                                                          for _, d, _ in td.HEADS]
+    cn = td.init_nodes(64, pts, torch.ones(256, dtype=torch.bool), 16, 0,
+                       td.init_mlp(ws, heads))
+    new_pts = _t(np.random.default_rng(5).uniform(2, 3, (128, 3)).astype(np.float32))
+    cn2 = td.extend_nodes(cn, new_pts, torch.ones(128, dtype=torch.bool), 0, sample_number=20)
+    assert int(cn2.valid.sum()) == 36
+    np.testing.assert_array_equal(cn2.nodes[cn.valid].numpy(), cn.nodes[cn.valid].numpy())
+    newly = cn2.valid & ~cn.valid
+    assert bool((cn2.nodes[newly] >= 1.9).all())
+    assert bool((cn2.weight_raw[newly] == 0).all())
+
+
+def _acc_both(jcn, tcn, views, delta_t):
+    """acc_loss over `views` (time, key) weighted 1, 0.5 on both sides:
+    (reference value, its gradient as the port's leaves, port value, the
+    port's gradient leaves, the port's per-view values)."""
+    def j_total(f):
+        cn = jd.cn_merge(f, jcn.valid)
+        return sum(w * jd.acc_loss(cn, key, jnp.asarray(t, jcn.nodes.dtype), delta_t)
+                   for w, (t, key) in zip((1.0, 0.5), views))
+
+    jval, jgrad = jax.value_and_grad(j_total)(jd.cn_floats(jcn))
+    dt = tcn.nodes.dtype
+    us = torch.tensor([float(jax.random.uniform(key, (), jcn.nodes.dtype))
+                       for _, key in views], dtype=dt)
+    like = td.cn_floats(tcn)
+    flat = td.flatten(like).requires_grad_(True)
+    cn = td.cn_merge(td.unflatten(flat, like), tcn.valid)
+    per_view = td.acc_loss(cn, us, torch.tensor([t for t, _ in views], dtype=dt), delta_t)
+    tval = torch.sum(torch.tensor([1.0, 0.5], dtype=dt) * per_view)
+    (g,) = torch.autograd.grad(tval, flat)
+    return (float(jval), td.leaves(convert._floats_from(jgrad, "cpu")), float(tval.detach()),
+            td.leaves(td.unflatten(g, like)), cn, us, per_view.detach())
+
+
+def test_acc_loss_and_gradient_match():
+    """acc_loss's value in float32, and value and gradients in float64 on
+    both sides, at the file's tolerances. Its second difference cancels
+    (node positions near 0.5 against differences near 1e-3), so in float32
+    either side's gradient carries rounding of about 1e-5 of the largest."""
+    _, _, jcn, tcn = _field(seed=3)
+    delta_t = 0.05
+    views = [(0.15, jax.random.key(21)), (0.6, jax.random.key(22))]
+    jval, _, tval, _, cn, us, per_view = _acc_both(jcn, tcn, views, delta_t)
+    np.testing.assert_allclose(tval, jval, rtol=1e-5)
+    # a scalar time gives the same value as its view of the batch
+    one = td.acc_loss(cn, us[1], torch.tensor(views[1][0]), delta_t)
+    np.testing.assert_allclose(float(one.detach()), float(per_view[1]), rtol=1e-6)
+
+    with jax.enable_x64(True):
+        jcn64 = jax.tree.map(lambda a: a if a.dtype == jnp.bool_ else
+                             jnp.asarray(np.asarray(a), jnp.float64), jcn)
+        tcn64 = convert.control_nodes_from_arrays(jcn64, "cpu")
+        jval, want, tval, got, _, _, _ = _acc_both(jcn64, tcn64, views, delta_t)
+    np.testing.assert_allclose(tval, jval, rtol=1e-5)
+    top = max(float(b.abs().max()) for b in want)
+    assert top > 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert float((a - b).abs().max()) <= 1e-5 * top, i
+        if float(b.abs().max()) > 1e-3 * top:
+            _close(a.numpy(), b.numpy(), rtol=1e-4, err_msg=str(i))
