@@ -24,8 +24,11 @@ Phases, one line each, in order (any failure exits non-zero):
               and bounds
   4. tracking 100 track_frame iterations at 640x480, capacity 2^15, with a
               device profile of the loop
-  5. slam     SLAM.run at the benchmark's width and capacity on 10 frames,
-              held to ATE < 0.05 m, PSNR > 15 and L1 depth < 1.2
+  5. slam     SLAM.run(warmup_frames=1) at the benchmark's width and
+              capacity on 10 frames, held to ATE < 0.05 m, PSNR > 15 and L1
+              depth < 1.2 and to fps_steady set; prints fps (the whole run)
+              and fps_steady (frames 1-9: frame 0's 1,050-iteration
+              initialisation left out) and the steady state's phase seconds
   6. dynamic  SLAM(dynamic=True).run at the `bench.py --dynamic` width and
               capacity on 15 of its 40 frames (keyframes 0, 5, 8 = dystart
               and 13), held to ATE < 0.08 m, PSNR > 14, keyframe 8, more
@@ -451,12 +454,29 @@ def observe_stages(slam_cls, wrappers):
             setattr(slam_cls, name, fn)
 
 
-def write_cli_sequence(tmp: str, extra_yaml: str = "", blob: bool = True) -> str:
-    """Write the cli phase's sequence (CLI_FRAMES frames of the dynamic
-    synthetic sequence at 640x480, or with `blob` False of the static one,
-    in TUM layout) and its config under `tmp`; returns the config's path.
-    The config inherits configs/rgbd/tum/base_config.yaml and sets the
-    sequence, its calibration, dystart 8 and `extra_yaml`."""
+# the iterations per tracked frame and per keyframe phase, which
+# `write_cli_sequence(iters=F)` divides by F (frame 0's initialisation, a
+# one-off, keeps its 1050 and its densify and reset cadence)
+ITER_KEYS = {"tracking_itr_num": 100, "keyframe_mapping_iters": 200}
+# base_config.yaml's pixel strides of the points that spawn Gaussians
+PCD_STRIDES = {"pcd_downsample": 128, "pcd_downsample_init": 32}
+
+
+def write_cli_sequence(tmp: str, extra_yaml: str = "", blob: bool = True,
+                       frames: int = CLI_FRAMES, scale: float = 1.0, strides: float = 1.0,
+                       iters: int = 1, device: str = "cuda") -> str:
+    """Write the cli phase's sequence (`frames` frames, CLI_FRAMES unless
+    asked, of the dynamic synthetic sequence at 640x480, or with `blob`
+    False of the static one, in TUM layout) and its config under `tmp`;
+    returns the config's path. The config inherits
+    configs/rgbd/tum/base_config.yaml and sets the sequence, its
+    calibration, dystart 8 and `extra_yaml`. A shorter sequence is the first
+    `frames` of the CLI_FRAMES-frame one (the camera and the blob move as
+    much per frame); `scale` scales the resolution and the intrinsics with
+    it; `strides` scales base_config.yaml's pixel strides of the points
+    that spawn Gaussians (scale squared spawns as many as at 640x480);
+    `iters` divides the counts of ITER_KEYS (base_config.yaml's and the
+    runner's defaults)."""
     import torch
 
     from fourdgs_torch import kernel_check as KC
@@ -464,19 +484,30 @@ def write_cli_sequence(tmp: str, extra_yaml: str = "", blob: bool = True) -> str
 
     seq = os.path.join(tmp, "seq")
     seq_cfg = (KC.bench_dynamic_config if blob else KC.bench_config)(CLI_FRAMES)
-    synthetic = SyntheticDataset(None, "", seq_cfg, device="cuda")
+    c = seq_cfg["Dataset"]["Calibration"]
+    for k in ("fx", "fy", "cx", "cy"):
+        c[k] = c[k] * scale
+    c["width"], c["height"] = round(c["width"] * scale), round(c["height"] * scale)
+    synthetic = SyntheticDataset(None, "", seq_cfg, device=device)
+    synthetic.num_imgs = frames
     write_tum_format(synthetic, seq)
-    c = synthetic.config["Dataset"]["Calibration"]
     cfg = os.path.join(tmp, "synthetic_tum_dynamic.yaml")
+    pcd = "".join(f"  {k}: {max(1, round(n * strides))}\n"
+                  for k, n in PCD_STRIDES.items()) if strides != 1 else ""
+    training = {"dystart": 8}
+    if iters != 1:
+        training.update({k: max(1, round(n / iters)) for k, n in ITER_KEYS.items()})
     with open(cfg, "w") as f:
         f.write("inherit_from: configs/rgbd/tum/base_config.yaml\n"
-                f"Dataset:\n  dataset_path: {seq}\n  Calibration:\n"
+                f"Dataset:\n  dataset_path: {seq}\n{pcd}  Calibration:\n"
                 + "".join(f"    {k}: {c[k]}\n" for k in ("fx", "fy", "cx", "cy", "width",
                                                         "height"))
                 + "    depth_scale: 5000.0\n    distorted: false\n"
-                "Training:\n  dystart: 8\n" + extra_yaml)
+                "Training:\n" + "".join(f"  {k}: {v}\n" for k, v in training.items())
+                + extra_yaml)
     del synthetic
-    torch.cuda.empty_cache()
+    if device == "cuda":
+        torch.cuda.empty_cache()
     return cfg
 
 
@@ -2022,20 +2053,22 @@ def main() -> int:
     wrappers = {"composite_fwd": K.composite_fwd, "composite_bwd": K.composite_bwd}
     for k in wrappers.values():
         k.launches_by_views.clear()
-    metrics = slam.run()
+    metrics = slam.run(warmup_frames=1)
     by_views = {name: dict(k.launches_by_views) for name, k in wrappers.items()}
     launches = {name: sum(n.values()) for name, n in by_views.items()}
     ate = slam.eval_ate()["rmse"]
     rend = slam.eval_rendering()
     result = {"ate_rmse_m": ate, "psnr": rend["mean_psnr"], "l1_depth": rend["mean_l1_depth"],
-              "ssim": rend["mean_ssim"], "fps": metrics["fps"], "keyframes": len(slam.kf_indices),
+              "ssim": rend["mean_ssim"], "fps": metrics["fps"],
+              "fps_steady": metrics.get("fps_steady"), "keyframes": len(slam.kf_indices),
               "gaussians": slam.gmap.num_alive, "max_pairs_per_view": slam.max_pairs_seen,
               "phase_s": metrics["phase_s"], "launches": launches,
               "launches_by_views": by_views, "centre_err_mm": centre_errors_mm(slam)}
     record["slam"] = result
     log("slam: " + json.dumps(result))
     log(f"phase slam: {time.time() - t:.1f}s")
-    if not (ate < 0.05 and rend["mean_psnr"] > 15 and rend["mean_l1_depth"] < 1.2):
+    if not (ate < 0.05 and rend["mean_psnr"] > 15 and rend["mean_l1_depth"] < 1.2
+            and result["fps_steady"] is not None):
         raise SystemExit(f"SLAM result out of bounds: {result}")
     if min(launches.values()) <= 0 or len(slam.kf_indices) < 2:
         raise SystemExit(f"the SLAM phase did not run both kernels and a keyframe: {result}")

@@ -12,7 +12,9 @@ trajectory (`pose.txt`, `plot/`), and `point_cloud/<label>/point_cloud.ply`.
 for `Training.refinement_iters` iterations (1500 by default) and
 evaluates again (`psnr/after_opt/`); `--interval` strides the image
 dumps. `--checkpoint` saves the whole state
-after the run, `--resume` loads one before it. `main(argv)` returns the
+after the run, `--resume` loads one before it. With `Results.use_wandb`,
+`--eval` also logs the final metrics table to wandb, its FPS the run's
+`fps_steady` where it has one, else `fps`. `main(argv)` returns the
 metrics.
 """
 
@@ -27,6 +29,18 @@ import yaml
 from fourdgs_torch.device import resolve_device
 from fourdgs_torch.utils.config import load_config
 from fourdgs_torch.utils.logging import Log
+
+
+def _wandb_table(wandb, before: dict, after: dict, ate_rmse: float, fps: float):
+    """The final metrics table: one row each before and after refinement.
+    A failing wandb is logged and the run goes on."""
+    try:
+        table = wandb.Table(columns=["tag", "psnr", "ssim", "lpips", "RMSE ATE", "FPS"])
+        for tag, r in (("Before", before), ("After", after)):
+            table.add_data(tag, r["mean_psnr"], r["mean_ssim"], r["mean_lpips"], ate_rmse, fps)
+        wandb.log({"Metrics": table})
+    except Exception as e:
+        Log(f"wandb metrics table failed: {e}")
 
 
 def main(argv=None) -> dict:
@@ -92,6 +106,9 @@ def main(argv=None) -> dict:
                             "l1_depth_after": after["mean_l1_depth"],
                             "lpips_before": before["mean_lpips"],
                             "lpips_after": after["mean_lpips"]})
+            if slam._wandb is not None:
+                _wandb_table(slam._wandb, before, after, ate["rmse"],
+                             metrics.get("fps_steady", metrics.get("fps")))
         slam.save("final")
     Log(f"Done. metrics={metrics}")
     return metrics

@@ -288,6 +288,22 @@ def prune(gmap: GaussianMap, adam: AdamState, kill: torch.Tensor):
     )
 
 
+def add_densification_stats(gmap: GaussianMap, mean2d_grad: torch.Tensor,
+                            update_filter: torch.Tensor) -> GaussianMap:
+    """Add |d mean2d| (N, 2) of the Gaussians in `update_filter` to their
+    densification statistics, and one to their count."""
+    f = update_filter.to(torch.float32)
+    return gmap._replace(grad_accum=gmap.grad_accum + torch.linalg.norm(mean2d_grad, dim=-1) * f,
+                         denom=gmap.denom + f)
+
+
+def update_max_radii(gmap: GaussianMap, radii: torch.Tensor,
+                     visible: torch.Tensor) -> GaussianMap:
+    """The largest screen radius seen so far, for the `visible` Gaussians."""
+    return gmap._replace(max_radii2d=torch.where(
+        visible, torch.maximum(gmap.max_radii2d, radii.to(torch.float32)), gmap.max_radii2d))
+
+
 def reset_opacity(gmap: GaussianMap, adam: AdamState, value: float = 0.01):
     """Set all opacities to `value` and reset the opacity moments."""
     new_op = torch.full_like(gmap.params.opacity, inverse_sigmoid(value))

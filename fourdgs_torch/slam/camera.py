@@ -43,6 +43,13 @@ class Intrinsics(NamedTuple):
                     tan_fovx=self.tan_fovx, tan_fovy=self.tan_fovy)
 
     @classmethod
+    def from_config(cls, config) -> "Intrinsics":
+        """The calibration of `config["Dataset"]["Calibration"]`."""
+        c = config["Dataset"]["Calibration"]
+        return cls(fx=float(c["fx"]), fy=float(c["fy"]), cx=float(c["cx"]), cy=float(c["cy"]),
+                   width=int(c["width"]), height=int(c["height"]))
+
+    @classmethod
     def from_dataset(cls, ds) -> "Intrinsics":
         """The calibration a dataset carries: its config's, or a live
         camera's own."""

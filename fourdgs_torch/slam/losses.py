@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from fourdgs_torch.ops.image import image_gradient, image_gradient_mask
+
 
 def apply_exposure(image: torch.Tensor, exposure_a, exposure_b) -> torch.Tensor:
     """Affine exposure compensation: exp(a) * I + b."""
@@ -137,6 +139,18 @@ def masked_flow_l1(rendered_flow: torch.Tensor, target_flow: torch.Tensor,
             / torch.clamp(torch.sum(m, dim=(-3, -2, -1)) * 2.0, min=1.0))
 
 
+def pearson_depth_loss(depth: torch.Tensor, gt_depth: torch.Tensor) -> torch.Tensor:
+    """1 - the Pearson correlation of rendered and true depth, both zeroed
+    where the true depth is invalid."""
+    valid = (gt_depth > 0.01).to(depth.dtype)
+    d = (depth * valid).reshape(-1)
+    g = (gt_depth * valid).reshape(-1)
+    dm = d - torch.mean(d)
+    gm = g - torch.mean(g)
+    den = torch.sqrt(torch.sum(dm ** 2) * torch.sum(gm ** 2) + 1e-12)
+    return 1.0 - torch.sum(dm * gm) / den
+
+
 def isotropic_loss(scaling: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     """|s - mean(s)| per Gaussian, masked mean over alive slots."""
     dev = torch.abs(scaling - torch.mean(scaling, dim=1, keepdim=True))
@@ -160,3 +174,23 @@ def median_depth(depth: torch.Tensor, opacity: torch.Tensor | None = None,
     med = torch.quantile(vals, 0.5)
     std = torch.sqrt(torch.mean((vals - med) ** 2))
     return med, std, valid
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with the reference's gradient at 0 (+1, where torch.abs gives 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def depth_smoothness_loss(depth: torch.Tensor, gt_image: torch.Tensor) -> torch.Tensor:
+    """Edge-aware depth smoothness: the depth's Scharr gradients weighted by
+    exp(-10 * the grey image's gradient^2), on pixels whose 3x3 depth
+    window is valid."""
+    gray_v, gray_h = image_gradient(torch.mean(gt_image, dim=0, keepdim=True))
+    d = depth[None]
+    mask_v, mask_h = image_gradient_mask(d)
+    depth_v, depth_h = image_gradient(d)
+    w_v = torch.exp(-10.0 * gray_v ** 2) * mask_v
+    w_h = torch.exp(-10.0 * gray_h ** 2) * mask_h
+    nv = torch.clamp(torch.sum(mask_v), min=1.0)
+    nh = torch.clamp(torch.sum(mask_h), min=1.0)
+    return torch.sum(w_h * _abs(depth_h)) / nh + torch.sum(w_v * _abs(depth_v)) / nv

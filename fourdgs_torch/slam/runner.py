@@ -715,17 +715,21 @@ class SLAM:
         T0 = self.poses_est[ks[-2]]
         return (T1 @ np.linalg.inv(T0) @ T1).astype(np.float32)
 
-    def run(self) -> dict:
-        """Process the sequence; returns frames/s, the map size and the
-        seconds spent per phase. The mesh, if any, is closed at the end,
-        unless the runner is used in a `with` block."""
+    def run(self, warmup_frames: int = 0) -> dict:
+        """Process the sequence; returns frames/s over the whole run (`fps`),
+        the map size and the seconds spent per phase (`phase_s`). With
+        `warmup_frames` N > 0 and more than N frames, also `fps_steady`:
+        the frames from N on over the seconds from frame N's start. The
+        device is synchronised there and the phase clocks start again, so
+        `phase_s` holds the steady state's. The mesh, if any, is closed at
+        the end, unless the runner is used in a `with` block."""
         try:
-            return self._run()
+            return self._run(warmup_frames)
         finally:
             self._close_viewer()
             self._end_call()
 
-    def _run(self) -> dict:
+    def _run(self, warmup_frames: int) -> dict:
         results = self.config.get("Results", {})
         if results.get("use_gui", False) and self.save_dir:
             from fourdgs_torch.gui.viewer import LiveViewer
@@ -733,10 +737,15 @@ class SLAM:
             self.viewer = LiveViewer(self.save_dir, interval=self.save_interval,
                                      serve_port=results.get("gui_port"))
         t0 = time.time()
+        t_warm = t0
         self._phase = _zero_phases()
         last_kf = 0
         for idx, frame in iter_frames(self.dataset, self.edge_threshold, self.n_frames,
                                       device=self.device):
+            if idx == warmup_frames:
+                self._sync()
+                t_warm = time.time()
+                self._phase = _zero_phases()   # steady-state attribution
             if idx == 0:
                 self._initialize(frame)
                 last_kf = 0
@@ -797,12 +806,22 @@ class SLAM:
 
         self._sync()
         elapsed = time.time() - t0
+        ph = self._phase
+        steady_s = time.time() - t_warm
+        Log("Steady-state phase times: track {track:.1f}s ({track_iters} iters), kf_check "
+            "{kf_check:.1f}s, keyframe(mapping) {keyframe:.1f}s (4D mapping {dyn_mapping:.1f}s, "
+            "{dyn_iters} iters), other {other:.1f}s".format(
+                other=steady_s - ph["track"] - ph["kf_check"] - ph["keyframe"], **ph),
+            tag="Perf")
         self.metrics["fps"] = self.n_frames / elapsed
+        Log(f"Total FPS: {self.metrics['fps']:.3f} ({self.n_frames} frames / {elapsed:.1f}s)")
+        if warmup_frames > 0 and self.n_frames > warmup_frames:
+            self.metrics["fps_steady"] = (self.n_frames - warmup_frames) / steady_s
+            Log(f"Steady-state FPS (after {warmup_frames} warmup frames): "
+                f"{self.metrics['fps_steady']:.3f}")
         self.metrics["n_frames"] = self.n_frames
         self.metrics["n_gaussians"] = self.gmap.num_alive
-        self.metrics["phase_s"] = dict(self._phase)
-        Log(f"FPS {self.metrics['fps']:.3f} ({self.n_frames} frames / {elapsed:.1f}s); "
-            f"phases {self._phase}", tag="4DGS-SLAM")
+        self.metrics["phase_s"] = dict(ph)
         return self.metrics
 
     def _sync(self):

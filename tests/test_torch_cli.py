@@ -267,3 +267,37 @@ def test_cli_without_card_exits_nonzero(sequence, tmp_path, monkeypatch):
         cli.main(["--config", path, "--eval"])
     assert e.value.code not in (0, None)
     assert not os.path.exists(tmp_path / "results")
+
+
+@pytest.mark.parametrize("warmup", [0, 1])
+def test_wandb_metrics_table(sequence, tmp_path, monkeypatch, warmup):
+    # with --eval the final table of slam.py:100-121: a row before and one
+    # after refinement, its FPS the run's fps_steady where it has one (the
+    # run made with warmup_frames), else fps
+    wandb = wandb_stub()
+
+    class Table:
+        def __init__(self, columns):
+            self.columns, self.rows = columns, []
+
+        def add_data(self, *row):
+            self.rows.append(row)
+
+    wandb.Table = Table
+    monkeypatch.setitem(sys.modules, "wandb", wandb)
+    run = trunner.SLAM.run
+    monkeypatch.setattr(trunner.SLAM, "run", lambda self: run(self, warmup_frames=warmup))
+    cfg = _config(sequence, str(tmp_path / "results"), dynamic_model=False)
+    cfg["Results"].update(use_wandb=True)
+    cfg["Training"].update(init_itr_num=5, tracking_itr_num=4, keyframe_mapping_iters=2,
+                           mapping_itr_num=2, kf_interval=2, kf_overlap=1.01,
+                           refinement_iters=2)
+    metrics = cli.main(["--config", _write(tmp_path, cfg), "--eval", "--max-frames", "3",
+                        "--capacity", "4096", "--device", "cpu"])
+    (table,) = [e["Metrics"] for e in wandb.logs if "Metrics" in e]
+    assert table.columns == ["tag", "psnr", "ssim", "lpips", "RMSE ATE", "FPS"]
+    assert [r[0] for r in table.rows] == ["Before", "After"]
+    assert ("fps_steady" in metrics) == (warmup == 1)
+    assert table.rows[1] == ("After", metrics["psnr_after"], metrics["ssim_after"],
+                             metrics["lpips_after"], metrics["ate_rmse"],
+                             metrics["fps_steady"] if warmup else metrics["fps"])

@@ -44,3 +44,16 @@ def test_inherit_from_relative_to_working_directory(tmp_path, monkeypatch):
     assert got == j_load_config(str(child)).to_plain()
     assert got["Dataset"]["dataset_path"] == "/data/seq" and got["Dataset"]["type"] == "tum"
     assert got["Training"]["dystart"] == 8 and got["Training"]["tracking_itr_num"] == 100
+
+
+@pytest.mark.parametrize("rel", [r for r in CONFIGS if "Calibration" in j_load_config(
+    os.path.join(ROOT, r)).to_plain().get("Dataset", {})])
+def test_intrinsics_from_config_as_in_jax(rel):
+    from fourdgs.slam.camera import Intrinsics as JIntrinsics
+    from fourdgs_torch.slam.camera import Intrinsics
+
+    path = os.path.join(ROOT, rel)
+    got = Intrinsics.from_config(load_config(path))
+    want = JIntrinsics.from_config(j_load_config(path))
+    assert tuple(got) == tuple(want)
+    assert [type(v) for v in got] == [type(v) for v in want]

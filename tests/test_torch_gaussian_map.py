@@ -217,3 +217,19 @@ def test_knn_mean_sq_dist_and_expon_lr():
                 tgm.expon_lr(step, 1.0, 0.01, lr_delay_steps=delay, lr_delay_mult=0.1),
                 float(jgm.expon_lr(step, 1.0, 0.01, lr_delay_steps=delay, lr_delay_mult=0.1)),
                 rtol=1e-6)
+
+
+def test_densification_stats_and_max_radii_match():
+    gmap, _ = _jax_state(7)
+    rng = np.random.default_rng(7)
+    cap = gmap.capacity
+    grad = rng.normal(0, 1e-3, (cap, 2)).astype(np.float32)
+    radii = rng.integers(0, 40, cap).astype(np.int32)
+    visible = rng.uniform(size=cap) > 0.4
+    j_map = jgm.update_max_radii(jgm.add_densification_stats(
+        gmap, jnp.asarray(grad), jnp.asarray(visible)), jnp.asarray(radii), jnp.asarray(visible))
+    t_map, _ = _port(gmap, jgm.init_adam(cap))
+    t_map = tgm.update_max_radii(tgm.add_densification_stats(
+        t_map, torch.tensor(grad), torch.tensor(visible)), torch.tensor(radii),
+        torch.tensor(visible))
+    _check_map(t_map, j_map)

@@ -116,3 +116,31 @@ def test_mapping_isotropic_and_median_depth_match():
                               None if m is None else torch.tensor(m))
         for a, b in zip(tm, jm):
             np.testing.assert_allclose(np.asarray(a), np.asarray(b), **TOL)
+
+
+def test_pearson_and_depth_smoothness_match(monkeypatch):
+    # values within 1e-6, gradients with respect to the rendered depth within
+    # 3e-3 of their largest magnitude; a flat patch of depth, where the
+    # smoothness term's Scharr differences are exactly 0, takes the
+    # reference's gradient of |x| at 0 (+1, where torch.abs gives 0: with
+    # torch.abs the gradient inside the patch's border leaves the tolerance)
+    img, gt, depth, gt_depth, *_ = _inputs(5)
+    depth[8:16, 10:20] = 2.0
+    gt_depth[8:16, 10:20] = 2.0
+    assert (np.asarray(jimg.image_gradient(jnp.asarray(depth)[None])[1])[0, 10:14, 12:18]
+            == 0).all()
+
+    def port(name, other):
+        td = torch.tensor(depth, requires_grad=True)
+        tv = getattr(tls, name)(td, torch.tensor(other))
+        return tv, torch.autograd.grad(tv, td)[0].numpy()
+
+    for name, other in (("pearson_depth_loss", gt_depth), ("depth_smoothness_loss", gt)):
+        jv, jg = jax.value_and_grad(getattr(jls, name))(jnp.asarray(depth), jnp.asarray(other))
+        jg = np.asarray(jg)
+        tv, tg = port(name, other)
+        np.testing.assert_allclose(float(tv), float(jv), rtol=0, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(tg, jg, rtol=0, atol=3e-3 * np.abs(jg).max(), err_msg=name)
+    monkeypatch.setattr(tls, "_abs", torch.abs)
+    _, torch_abs_grad = port("depth_smoothness_loss", gt)
+    assert np.abs(torch_abs_grad - jg).max() > 0.1 * np.abs(jg).max()
