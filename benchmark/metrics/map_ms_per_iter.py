@@ -1,0 +1,10 @@
+"""Milliseconds per keyframe mapping iteration: the synchronised span
+around each of the runner's calls of `slam/mapping.py` `map_chunk`, over
+the call's `num_iters`, in the window's unprofiled cycles. Moves
+`fps`."""
+
+SOURCE, UNIT, MOVES = "program_span", "ms", "fps"
+
+
+def read(r):
+    return r.per_work("map_chunk", 1e3)
