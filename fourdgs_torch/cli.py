@@ -2,7 +2,7 @@
 
     python -m fourdgs_torch.cli --config configs/rgbd/tum/fr3_walking_xyz.yaml \
         [--eval] [--dynamic] [--interval N] [--max-frames N] [--capacity N] \
-        [--checkpoint PATH] [--resume PATH] [--device cuda|cpu]
+        [--checkpoint PATH] [--resume PATH] [--device cuda|cpu] [--trace PATH]
 
 It runs on the CUDA card unless `--device cpu` is given; without a card it
 exits non-zero. With `Results.save_results` (forced by `--eval`) the run
@@ -14,8 +14,10 @@ evaluates again (`psnr/after_opt/`); `--interval` strides the image
 dumps. `--checkpoint` saves the whole state
 after the run, `--resume` loads one before it. With `Results.use_wandb`,
 `--eval` also logs the final metrics table to wandb, its FPS the run's
-`fps_steady` where it has one, else `fps`. `main(argv)` returns the
-metrics.
+`fps_steady` where it has one, else `fps`. `--trace PATH` records the
+program's spans and sync counters (utils/trace.py) over the whole run and
+writes them to PATH as Chrome trace-event JSON, which Perfetto opens, at
+the end (also when the run fails). `main(argv)` returns the metrics.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import time
 import yaml
 
 from fourdgs_torch.device import resolve_device
+from fourdgs_torch.utils import trace
 from fourdgs_torch.utils.config import load_config
 from fourdgs_torch.utils.logging import Log
 
@@ -56,11 +59,25 @@ def main(argv=None) -> dict:
     parser.add_argument("--resume", type=str, default=None,
                         help="load the whole state from a checkpoint before the run")
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--trace", type=str, default=None,
+                        help="write the program's spans and counters here (Chrome trace JSON)")
     args = parser.parse_args(argv)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"fourdgs_torch.cli: {e}") from e
+    if args.trace is None:
+        return _main(args, device)
+    trace.clear()
+    with trace.enable():
+        try:
+            return _main(args, device)
+        finally:
+            trace.write_chrome_trace(args.trace)
+            Log(f"Trace written to {args.trace} ({len(trace.spans())} spans)")
+
+
+def _main(args, device) -> dict:
 
     config = load_config(args.config)
     if args.eval:

@@ -16,6 +16,7 @@ from typing import Iterator
 import torch
 
 from fourdgs_torch.slam.camera import Frame, make_frame
+from fourdgs_torch.utils.trace import span
 
 
 def iter_frames(dataset, edge_threshold: float = 1.1, end: int | None = None, *,
@@ -23,7 +24,9 @@ def iter_frames(dataset, edge_threshold: float = 1.1, end: int | None = None, *,
     n = len(dataset) if end is None else min(end, len(dataset))
     denom = max(dataset.num_imgs - 1, 1)
     for idx in range(n):
-        image, depth, pose, motion_mask = dataset[idx]
-        yield idx, make_frame(idx, image, depth, pose, time=idx / denom,
-                              motion_mask=motion_mask, edge_threshold=edge_threshold,
-                              device=device)
+        with span("fetch"):   # the read (a recording's PNG decode) and the copy to `device`
+            image, depth, pose, motion_mask = dataset[idx]
+            frame = make_frame(idx, image, depth, pose, time=idx / denom,
+                               motion_mask=motion_mask, edge_threshold=edge_threshold,
+                               device=device)
+        yield idx, frame

@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from fourdgs_torch.utils.trace import sync
+
 
 def fov2focal(fov: float, pixels: float) -> float:
     return pixels / (2.0 * math.tan(fov / 2.0))
@@ -48,7 +50,8 @@ def projection_matrix(
     P[3, 2] = 1.0
     P[2, 2] = zfar / (zfar - znear)
     P[2, 3] = -(zfar * znear) / (zfar - znear)
-    return P.to(device)
+    with sync("proj.h2d"):
+        return P.to(device)
 
 
 def world_to_view(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

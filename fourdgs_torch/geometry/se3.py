@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from fourdgs_torch.utils.trace import sync
+
 _EPS = 1e-5
 
 
@@ -91,7 +93,8 @@ def se3_exp(tau: torch.Tensor) -> torch.Tensor:
     R = so3_exp(theta)
     t = torch.einsum("...ij,...j->...i", se3_V(theta), rho)
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=tau.dtype, device=tau.device)
+    with sync("se3.bottom_h2d"):
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=tau.dtype, device=tau.device)
     bottom = bottom.expand(tau.shape[:-1] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 

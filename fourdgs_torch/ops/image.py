@@ -8,6 +8,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from fourdgs_torch.utils.trace import sync
+
 # Scharr kernels; the reference names its vertical-edge response (conv with
 # the x-kernel) `img_grad_v` — the naming quirk is kept so thresholds
 # behave identically
@@ -21,7 +23,8 @@ def _conv3x3(img: torch.Tensor, kernel, pad_mode: str = "reflect") -> torch.Tens
     """Depthwise 3x3 cross-correlation on (C, H, W), reflect (or zero)
     padded."""
     c = img.shape[0]
-    k = torch.tensor(kernel, dtype=img.dtype, device=img.device)
+    with sync("image.kernel_h2d"):
+        k = torch.tensor(kernel, dtype=img.dtype, device=img.device)
     k = k[None, None].expand(c, 1, 3, 3)
     p = F.pad(img[None], (1, 1, 1, 1), mode=pad_mode)
     return F.conv2d(p, k, groups=c)[0]

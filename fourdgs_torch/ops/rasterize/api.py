@@ -16,6 +16,7 @@ from fourdgs_torch.ops.rasterize.binning import TileBins, bin_gaussians, tile_gr
 from fourdgs_torch.ops.rasterize.compositor import NOUT, TILE, TileGrid, composite
 from fourdgs_torch.ops.rasterize.oracle import RenderOutputs
 from fourdgs_torch.ops.rasterize.preprocess import preprocess
+from fourdgs_torch.utils.trace import span
 
 
 class RasterConfig(NamedTuple):
@@ -69,8 +70,8 @@ def compute_bins_multi(
     tan_fovy: float, scale_mod: float = 1.0, config: RasterConfig = RasterConfig(),
 ) -> TileBins:
     """Tile binning of V views (T_cws (V, 4, 4)) for reuse across nearby
-    renders. Forward only."""
-    with torch.no_grad():
+    renders. Forward only. A `bin` span (work: the views)."""
+    with torch.no_grad(), span("bin", T_cws.shape[0]):
         op = torch.ones_like(means3d[..., 0]) if opacities is None else opacities
         sg = preprocess(
             means3d, scales, quats, op, torch.zeros_like(means3d), alive,
@@ -111,12 +112,13 @@ def screen_fields(
     mean2d = sg.mean2d if mean2d_offsets is None else sg.mean2d + mean2d_offsets
     tx_n, ty_n = tile_grid(width, height, TILE)
     if bins is None:
-        bins = bin_gaussians(
-            mean2d.detach(), sg.depth.detach(), sg.radius, sg.visible,
-            width=width, height=height, tile=TILE,
-            max_rect=config.max_rect, max_pairs=config.max_pairs,
-            opacity=sg.opacity.detach(), cull_radius=sg.sigma3.detach(),
-        )
+        with span("bin", v):
+            bins = bin_gaussians(
+                mean2d.detach(), sg.depth.detach(), sg.radius, sg.visible,
+                width=width, height=height, tile=TILE,
+                max_rect=config.max_rect, max_pairs=config.max_pairs,
+                opacity=sg.opacity.detach(), cull_radius=sg.sigma3.detach(),
+            )
     n = mean2d.shape[-2]
     color = sg.color.expand((v, n, sg.color.shape[-1]))
     fields = torch.cat(

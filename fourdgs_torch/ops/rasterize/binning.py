@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from fourdgs_torch.utils.trace import sync
+
 
 class TileBins(NamedTuple):
     pair_gid: torch.Tensor    # (P,) int32 Gaussian id of each pair
@@ -98,15 +100,20 @@ def bin_gaussians(
     # compaction, then two stable sorts: by depth, then by tile. The
     # candidates enter in (view, gaussian, slot) order, so ties keep the
     # reference's stable-sort order (lower Gaussian id first).
-    vi, gi, si = cand_ok.nonzero(as_tuple=True)
+    with sync("bin.nonzero"):
+        vi, gi, si = cand_ok.nonzero(as_tuple=True)
     tile_g = vi * num_tiles + cand_tile[vi, gi, si].to(torch.int64)
     order = torch.argsort(depth[vi, gi], stable=True)
     order = order[torch.argsort(tile_g[order], stable=True)]
     pair_gid = gi[order].to(torch.int32)
 
-    tile_count = torch.bincount(tile_g, minlength=v_n * num_tiles)
+    # bincount reads its input's least and largest value on the host
+    reads = 2 if vi.numel() else 0
+    with sync("bin.tile_count", reads):
+        tile_count = torch.bincount(tile_g, minlength=v_n * num_tiles)
     tile_start = torch.cumsum(tile_count, 0) - tile_count
-    num_pairs = torch.bincount(vi, minlength=v_n)
+    with sync("bin.view_pairs", reads):
+        num_pairs = torch.bincount(vi, minlength=v_n)
     return TileBins(
         pair_gid=pair_gid,
         tile_start=tile_start.to(torch.int32),

@@ -27,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from fourdgs_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 SOURCES = {"composite_fwd": "composite_fwd.cu", "composite_bwd": "composite_bwd.cu"}
@@ -204,5 +206,5 @@ def _count(wrapper, views: int):
     wrapper.launches_by_views[views] = wrapper.launches_by_views.get(views, 0) + 1
 
 
-composite_fwd.launches_by_views = {}
-composite_bwd.launches_by_views = {}
+composite_fwd.launches_by_views = trace.register("composite_fwd.launches_by_views", {})
+composite_bwd.launches_by_views = trace.register("composite_bwd.launches_by_views", {})

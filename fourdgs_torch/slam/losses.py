@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from fourdgs_torch.ops.image import image_gradient, image_gradient_mask
+from fourdgs_torch.utils.trace import sync
 
 
 def apply_exposure(image: torch.Tensor, exposure_a, exposure_b) -> torch.Tensor:
@@ -167,9 +168,11 @@ def median_depth(depth: torch.Tensor, opacity: torch.Tensor | None = None,
         valid = valid & (opacity > 0.95)
     if mask is not None:
         valid = valid & mask
-    vals = depth[valid]
+    with sync("median.nonzero"):
+        vals = depth[valid]
     if vals.numel() == 0:
-        nan = torch.tensor(float("nan"), device=depth.device)
+        with sync("median.nan_h2d"):
+            nan = torch.tensor(float("nan"), device=depth.device)
         return nan, nan, valid
     med = torch.quantile(vals, 0.5)
     std = torch.sqrt(torch.mean((vals - med) ** 2))

@@ -25,6 +25,14 @@ With `MappingConfig.refine` (colour refinement) every iteration's view
 set is instead `num_views` distinct keyframes drawn from the whole pool
 (`refine_picks`), binned afresh, under (1 - lambda) L1 + lambda (1 - SSIM)
 + 0.1 L1 depth, motion-masked; only the map parameters step.
+
+Spans (utils/trace.py): `map_chunk` (work: the iterations), with one
+`map_iter` per iteration. Sync sites: the pose mask's reads
+(`map.pose_mask`), the learning rates' and the window's copies
+(`map.lr_h2d`, `map.window_h2d`), each iteration's view slots and ids
+(`map.slots_h2d`, `map.ids_h2d`; `map.masks_h2d` with extra masks), and
+at the end the loss (`map.loss`) and the overflow and pair count
+(`map.seen`).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from fourdgs_torch.parallel.comm import Comm
 from fourdgs_torch.slam.camera import Intrinsics
 from fourdgs_torch.slam.keyframes import KeyframeStore, fetch_images
 from fourdgs_torch.slam.losses import isotropic_loss, mapping_loss_rgb, mapping_loss_rgbd
+from fourdgs_torch.utils.trace import span, sync
 
 
 class MappingConfig(NamedTuple):
@@ -219,19 +228,21 @@ def _pose_mask(store: KeyframeStore, window_slots: np.ndarray, window_valid: np.
     """The (Vw, 8) step mask of the window views' [trans, rot, exposure]:
     pose rows for valid views with uid != 0 and opt_pose, exposure rows for
     valid views with uid != 0."""
-    uid_ok = (store.uids[torch.as_tensor(window_slots, device=dev, dtype=torch.long)]
-              .cpu().numpy() != 0) & window_valid
-    return torch.as_tensor(
-        np.concatenate([np.repeat((opt_pose & uid_ok)[:, None], 6, 1),
-                        np.repeat(uid_ok[:, None], 2, 1)], 1),
-        dtype=torch.float32, device=dev,
-    )
+    with sync("map.pose_mask", 3):   # the slots' copy, the uids' read, the mask's copy
+        uid_ok = (store.uids[torch.as_tensor(window_slots, device=dev, dtype=torch.long)]
+                  .cpu().numpy() != 0) & window_valid
+        return torch.as_tensor(
+            np.concatenate([np.repeat((opt_pose & uid_ok)[:, None], 6, 1),
+                            np.repeat(uid_ok[:, None], 2, 1)], 1),
+            dtype=torch.float32, device=dev,
+        )
 
 
 def _pose_lr(cfg: MappingConfig, dev) -> torch.Tensor:
     """(8,) learning rates of a window view's [trans, rot, exposure]."""
-    return torch.tensor([cfg.lr_trans] * 3 + [cfg.lr_rot] * 3 + [cfg.lr_exposure] * 2,
-                        device=dev)
+    with sync("map.lr_h2d"):
+        return torch.tensor([cfg.lr_trans] * 3 + [cfg.lr_rot] * 3 + [cfg.lr_exposure] * 2,
+                            device=dev)
 
 
 def _replay_slots(picks_i, rand_pool: np.ndarray, size: int, vr: int) -> np.ndarray:
@@ -316,29 +327,31 @@ def map_chunk(
     sent the chunk's keyframes once (`_compact_store`); on a mesh every
     view is binned afresh every iteration, as the reference's mesh
     branch does."""
-    window_slots = np.asarray(window_slots)
-    window_valid = np.asarray(window_valid, bool)
-    dev = store.valid.device
-    slots_all, valid_all = _plan_views(window_slots, window_valid, np.asarray(rand_pool),
-                                       rand_pool_size, picks, num_iters, cfg)
-    mask8 = _pose_mask(store, window_slots, window_valid, np.asarray(opt_pose, bool), dev)
-    if mesh is None:
-        res = _map_chunk_rank(Comm.local(dev), gmap, adam, store, window_slots, window_valid,
-                              mask8, slots_all, valid_all, pose_adam, num_iters, step_after,
-                              iter_base, intr, cfg, extra_masks, max(cfg.rebin_every, 1))
-    else:
-        sent, idx, local = _compact_store(store, np.concatenate(
-            [slots_all[valid_all], window_slots[window_valid]]))
-        res = mesh.run(_map_chunk_rank, gmap, adam, sent,
-                       np.where(window_valid, local[window_slots * window_valid], 0),
-                       window_valid, mask8, np.where(valid_all, local[slots_all * valid_all], 0),
-                       valid_all, pose_adam, num_iters, step_after, iter_base, intr, cfg,
-                       extra_masks, 1)
-        store.T_cw[idx] = res.T_cw
-        store.exposure[idx] = res.exposure
-    return MapChunkResult(gmap=res.gmap, adam=res.adam, store=store, pose_adam=res.pose_adam,
-                          final_loss=res.final_loss, overflow=res.overflow,
-                          num_pairs=res.num_pairs)
+    with span("map_chunk", num_iters):
+        window_slots = np.asarray(window_slots)
+        window_valid = np.asarray(window_valid, bool)
+        dev = store.valid.device
+        slots_all, valid_all = _plan_views(window_slots, window_valid, np.asarray(rand_pool),
+                                           rand_pool_size, picks, num_iters, cfg)
+        mask8 = _pose_mask(store, window_slots, window_valid, np.asarray(opt_pose, bool), dev)
+        if mesh is None:
+            res = _map_chunk_rank(Comm.local(dev), gmap, adam, store, window_slots, window_valid,
+                                  mask8, slots_all, valid_all, pose_adam, num_iters, step_after,
+                                  iter_base, intr, cfg, extra_masks, max(cfg.rebin_every, 1))
+        else:
+            sent, idx, local = _compact_store(store, np.concatenate(
+                [slots_all[valid_all], window_slots[window_valid]]))
+            res = mesh.run(_map_chunk_rank, gmap, adam, sent,
+                           np.where(window_valid, local[window_slots * window_valid], 0),
+                           window_valid, mask8,
+                           np.where(valid_all, local[slots_all * valid_all], 0), valid_all,
+                           pose_adam, num_iters, step_after, iter_base, intr, cfg,
+                           extra_masks, 1)
+            store.T_cw[idx] = res.T_cw
+            store.exposure[idx] = res.exposure
+        return MapChunkResult(gmap=res.gmap, adam=res.adam, store=store, pose_adam=res.pose_adam,
+                              final_loss=res.final_loss, overflow=res.overflow,
+                              num_pairs=res.num_pairs)
 
 
 class _RankResult(NamedTuple):
@@ -373,8 +386,9 @@ def _map_chunk_rank(comm, gmap: GaussianMap, adam: AdamState, store: KeyframeSto
     nv = slots_all.shape[1]
     fixed = 0 if cfg.refine else vw     # the leading views whose bins are reused
     w_act = np.nonzero(window_valid)[0]
-    act = torch.as_tensor(w_act, device=dev, dtype=torch.long)
-    w_slots = torch.as_tensor(window_slots[w_act], device=dev, dtype=torch.long)
+    with sync("map.window_h2d", 2):
+        act = torch.as_tensor(w_act, device=dev, dtype=torch.long)
+        w_slots = torch.as_tensor(window_slots[w_act], device=dev, dtype=torch.long)
     pose_lr = _pose_lr(cfg, dev)
     cap = gmap.capacity
     sizes = [p.numel() for p in gmap.params]
@@ -382,66 +396,76 @@ def _map_chunk_rank(comm, gmap: GaussianMap, adam: AdamState, store: KeyframeSto
     loss_val = torch.tensor(float("inf"))
     seen = torch.zeros(2, dtype=torch.long, device=dev)   # overflow, most pairs of a view
     for i in range(num_iters):
-        ids = rank_block(np.nonzero(valid_all[i])[0], comm.rank, comm.size)
-        n_fix = int((ids < fixed).sum())
-        slots = torch.as_tensor(slots_all[i, ids], device=dev, dtype=torch.long)
-        if i % rebin_every == 0:
-            bins_w = _views_bins(gmap, store, slots[:n_fix], proj, intr, cfg) if n_fix else None
-        params = gmap.params.map(lambda x: x.detach().requires_grad_(True))
-        pack = torch.zeros(1 + n_p + nv * 8 + 2 * cap, device=dev)
-        loss = torch.zeros((), device=dev)
-        leaves = list(params)
-        if ids.size:
-            bins = _cat_some(bins_w, _views_bins(gmap, store, slots[n_fix:], proj, intr, cfg)
-                            if ids.size > n_fix else None)
-            seen = torch.maximum(seen, torch.stack([bins.overflow.any().long(),
-                                                    bins.num_pairs.max().long()]))
-            ems = None
-            if extra_masks is not None:
-                ems = torch.ones((ids.size,) + extra_masks.shape[1:], dtype=torch.bool,
-                                 device=dev)
-                win = ids < vw
-                ems[torch.as_tensor(np.nonzero(win)[0], device=dev)] = extra_masks[
-                    torch.as_tensor(ids[win], device=dev)]
-            per_view, out, dtaus, dexps, taps = _view_losses(params, gmap, store, slots, ems,
-                                                              proj, intr, cfg, bins)
-            loss = torch.sum(per_view)
-            leaves += [dtaus, dexps, taps]
-        if comm.rank == 0:
-            loss = loss + cfg.isotropic_weight * isotropic_loss(torch.exp(params.scaling),
-                                                                gmap.alive)
-        if loss.requires_grad:
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-        else:
-            grads = [torch.zeros_like(x) for x in leaves]
-        with torch.no_grad():
-            pack[0] = loss
-            pack[1:1 + n_p] = torch.cat([g.reshape(-1) for g in grads[:5]])
+        with span("map_iter"):
+            ids = rank_block(np.nonzero(valid_all[i])[0], comm.rank, comm.size)
+            n_fix = int((ids < fixed).sum())
+            with sync("map.slots_h2d"):
+                slots = torch.as_tensor(slots_all[i, ids], device=dev, dtype=torch.long)
+            if i % rebin_every == 0:
+                bins_w = (_views_bins(gmap, store, slots[:n_fix], proj, intr, cfg) if n_fix
+                          else None)
+            params = gmap.params.map(lambda x: x.detach().requires_grad_(True))
+            pack = torch.zeros(1 + n_p + nv * 8 + 2 * cap, device=dev)
+            loss = torch.zeros((), device=dev)
+            leaves = list(params)
             if ids.size:
-                g_taus, g_exps, g_taps = grads[5:]
-                g8 = pack[1 + n_p:1 + n_p + nv * 8].view(nv, 8)
-                g8[torch.as_tensor(ids, device=dev)] = torch.cat([g_taus, g_exps], dim=1)
-                upd = (out.radii > 0).to(torch.float32)
-                norms = torch.linalg.norm(g_taps, dim=-1)
-                pack[-2 * cap:-cap] = torch.sum(norms * upd, dim=0)
-                pack[-cap:] = torch.sum(upd, dim=0)
-            pack = comm.psum(pack)
-            loss_val = pack[0]
-            g_params = type(gmap.params)(*(g.view_as(p) for g, p in zip(
-                torch.split(pack[1:1 + n_p], sizes), gmap.params)))
-            gmap = gmap._replace(grad_accum=gmap.grad_accum + pack[-2 * cap:-cap],
-                                 denom=gmap.denom + pack[-cap:])
-            gmap, adam = _map_step(gmap, adam, g_params, i, step_after, iter_base, cfg)
-            if cfg.refine:
-                continue
-            gp = torch.zeros((vw, 8), device=dev)
-            gp[act] = pack[1 + n_p:1 + n_p + vw * 8].view(vw, 8)[act]
-            pose_adam = _pose_step(pose_adam, gp, mask8, pose_lr, store, act, w_slots)
+                bins = _cat_some(bins_w, _views_bins(gmap, store, slots[n_fix:], proj, intr, cfg)
+                                if ids.size > n_fix else None)
+                seen = torch.maximum(seen, torch.stack([bins.overflow.any().long(),
+                                                        bins.num_pairs.max().long()]))
+                ems = None
+                if extra_masks is not None:
+                    ems = torch.ones((ids.size,) + extra_masks.shape[1:], dtype=torch.bool,
+                                     device=dev)
+                    win = ids < vw
+                    with sync("map.masks_h2d", 2):
+                        ems[torch.as_tensor(np.nonzero(win)[0], device=dev)] = extra_masks[
+                            torch.as_tensor(ids[win], device=dev)]
+                per_view, out, dtaus, dexps, taps = _view_losses(params, gmap, store, slots, ems,
+                                                                  proj, intr, cfg, bins)
+                loss = torch.sum(per_view)
+                leaves += [dtaus, dexps, taps]
+            if comm.rank == 0:
+                loss = loss + cfg.isotropic_weight * isotropic_loss(torch.exp(params.scaling),
+                                                                    gmap.alive)
+            if loss.requires_grad:
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            else:
+                grads = [torch.zeros_like(x) for x in leaves]
+            with torch.no_grad():
+                pack[0] = loss
+                pack[1:1 + n_p] = torch.cat([g.reshape(-1) for g in grads[:5]])
+                if ids.size:
+                    g_taus, g_exps, g_taps = grads[5:]
+                    g8 = pack[1 + n_p:1 + n_p + nv * 8].view(nv, 8)
+                    with sync("map.ids_h2d"):
+                        g8_rows = torch.as_tensor(ids, device=dev)
+                    g8[g8_rows] = torch.cat([g_taus, g_exps], dim=1)
+                    upd = (out.radii > 0).to(torch.float32)
+                    norms = torch.linalg.norm(g_taps, dim=-1)
+                    pack[-2 * cap:-cap] = torch.sum(norms * upd, dim=0)
+                    pack[-cap:] = torch.sum(upd, dim=0)
+                pack = comm.psum(pack)
+                loss_val = pack[0]
+                g_params = type(gmap.params)(*(g.view_as(p) for g, p in zip(
+                    torch.split(pack[1:1 + n_p], sizes), gmap.params)))
+                gmap = gmap._replace(grad_accum=gmap.grad_accum + pack[-2 * cap:-cap],
+                                     denom=gmap.denom + pack[-cap:])
+                gmap, adam = _map_step(gmap, adam, g_params, i, step_after, iter_base, cfg)
+                if cfg.refine:
+                    continue
+                gp = torch.zeros((vw, 8), device=dev)
+                gp[act] = pack[1 + n_p:1 + n_p + vw * 8].view(vw, 8)[act]
+                pose_adam = _pose_step(pose_adam, gp, mask8, pose_lr, store, act, w_slots)
     seen = comm.pmax(seen)
+    with sync("map.loss"):
+        final_loss = float(loss_val)
+    with sync("map.seen", 2):
+        overflow, num_pairs = bool(seen[0]), int(seen[1])
     return _RankResult(gmap=gmap, adam=adam, pose_adam=pose_adam, T_cw=store.T_cw,
-                       exposure=store.exposure, final_loss=float(loss_val),
-                       overflow=bool(seen[0]), num_pairs=int(seen[1]))
+                       exposure=store.exposure, final_loss=final_loss,
+                       overflow=overflow, num_pairs=num_pairs)
 
 
 def window_visibility(gmap: GaussianMap, store: KeyframeStore, window_slots,
@@ -454,11 +478,14 @@ def window_visibility(gmap: GaussianMap, store: KeyframeStore, window_slots,
     act = np.nonzero(window_valid)[0]
     if act.size:
         with torch.no_grad():
-            slots = torch.as_tensor(np.asarray(window_slots)[act], device=dev, dtype=torch.long)
+            with sync("map.visibility_h2d", 2):
+                slots = torch.as_tensor(np.asarray(window_slots)[act], device=dev,
+                                        dtype=torch.long)
+                act_t = torch.as_tensor(act, device=dev)
             out = rasterize_multi(*_activated(gmap.params), gmap.alive, store.T_cw[slots],
                                   intr.proj(device=dev), torch.zeros(3, device=dev),
                                   config=cfg.raster, **intr.raster_kw())
-            vis[torch.as_tensor(act, device=dev)] = out.n_touched > 0
+            vis[act_t] = out.n_touched > 0
     return vis
 
 

@@ -33,6 +33,12 @@ shards them.
 
 `warmup_network` is the deformation warmup on the keyframe that starts
 the dynamic phase: network loss, map and field steps.
+
+Spans (utils/trace.py): `map_chunk_dynamic` (work: the iterations), with
+one `dyn_iter` per iteration. Sync sites: `mapping.py`'s pose mask and
+learning rates, the regularizer weights' copy (`dyn.reg_h2d`), every
+index array copied to the device (`dyn.index_h2d`), and at the end the
+loss (`dyn.loss`) and the overflow and pair count (`dyn.seen`).
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from fourdgs_torch.slam.losses import (
     network_loss_rgbd,
 )
 from fourdgs_torch.parallel.comm import Comm
+from fourdgs_torch.utils.trace import span, sync
 from fourdgs_torch.slam.mapping import (
     MappingConfig,
     PoseAdam,
@@ -250,34 +257,35 @@ def map_chunk_dynamic(
     in contiguous blocks over them (`mapping.rank_block`). A rank is sent
     the chunk's keyframes once; on a mesh every view is binned afresh
     every iteration, as the reference's mesh branch does."""
-    picks, arap_u, elastic_u = draws
-    window_slots = np.asarray(window_slots)
-    window_valid = np.asarray(window_valid, bool)
-    pair_np = np.asarray(flow_pair_slots)
-    f_valid = window_valid & (pair_np >= 0)
-    dev = store.valid.device
-    slots_all, valid_all = _plan_views(window_slots, window_valid, np.asarray(rand_pool),
-                                       rand_pool_size, picks, num_iters, cfg)
-    mask8 = _pose_mask(store, window_slots, window_valid, np.asarray(opt_pose, bool), dev)
-    rest = (pose_adam, arap_u, elastic_u, num_iters, step_after, iter_base, intr, cfg,
-            flow_weight, flow_weight_fine, time_interval)
-    if mesh is None:
-        res = _dynamic_rank(Comm.local(dev), gmap, adam, store, cn, deform_adam, slots_all,
-                            valid_all, np.where(f_valid, pair_np, -1), mask8, flow_fwd,
-                            flow_bwd, *rest, max(cfg.rebin_every, 1))
-    else:
-        sent, idx, local = _compact_store(store, np.concatenate([slots_all[valid_all],
-                                                                 pair_np[f_valid]]))
-        res = mesh.run(_dynamic_rank, gmap, adam, sent, cn, deform_adam,
-                       np.where(valid_all, local[slots_all * valid_all], 0), valid_all,
-                       np.where(f_valid, local[np.where(f_valid, pair_np, 0)], -1), mask8,
-                       flow_fwd, flow_bwd, *rest, 1)
-        store.T_cw[idx] = res.T_cw
-        store.exposure[idx] = res.exposure
-    return DynChunkResult(gmap=res.gmap, adam=res.adam, store=store, pose_adam=res.pose_adam,
-                          deform=res.deform, deform_adam=res.deform_adam,
-                          final_loss=res.final_loss, overflow=res.overflow,
-                          num_pairs=res.num_pairs)
+    with span("map_chunk_dynamic", num_iters):
+        picks, arap_u, elastic_u = draws
+        window_slots = np.asarray(window_slots)
+        window_valid = np.asarray(window_valid, bool)
+        pair_np = np.asarray(flow_pair_slots)
+        f_valid = window_valid & (pair_np >= 0)
+        dev = store.valid.device
+        slots_all, valid_all = _plan_views(window_slots, window_valid, np.asarray(rand_pool),
+                                           rand_pool_size, picks, num_iters, cfg)
+        mask8 = _pose_mask(store, window_slots, window_valid, np.asarray(opt_pose, bool), dev)
+        rest = (pose_adam, arap_u, elastic_u, num_iters, step_after, iter_base, intr, cfg,
+                flow_weight, flow_weight_fine, time_interval)
+        if mesh is None:
+            res = _dynamic_rank(Comm.local(dev), gmap, adam, store, cn, deform_adam, slots_all,
+                                valid_all, np.where(f_valid, pair_np, -1), mask8, flow_fwd,
+                                flow_bwd, *rest, max(cfg.rebin_every, 1))
+        else:
+            sent, idx, local = _compact_store(store, np.concatenate([slots_all[valid_all],
+                                                                     pair_np[f_valid]]))
+            res = mesh.run(_dynamic_rank, gmap, adam, sent, cn, deform_adam,
+                           np.where(valid_all, local[slots_all * valid_all], 0), valid_all,
+                           np.where(f_valid, local[np.where(f_valid, pair_np, 0)], -1), mask8,
+                           flow_fwd, flow_bwd, *rest, 1)
+            store.T_cw[idx] = res.T_cw
+            store.exposure[idx] = res.exposure
+        return DynChunkResult(gmap=res.gmap, adam=res.adam, store=store, pose_adam=res.pose_adam,
+                              deform=res.deform, deform_adam=res.deform_adam,
+                              final_loss=res.final_loss, overflow=res.overflow,
+                              num_pairs=res.num_pairs)
 
 
 class _DynRankResult(NamedTuple):
@@ -320,13 +328,18 @@ def _dynamic_rank(comm, gmap: GaussianMap, adam: AdamState, store: KeyframeStore
     proj = intr.proj(device=dev)
     kw = intr.raster_kw()
     vw, nv = cfg.num_window_views, cfg.num_views
-    lt = lambda a: torch.as_tensor(np.asarray(a), device=dev, dtype=torch.long)  # noqa: E731
+
+    def lt(a):
+        with sync("dyn.index_h2d"):
+            return torch.as_tensor(np.asarray(a), device=dev, dtype=torch.long)
+
     f_valid = pairs >= 0
     w_valid = valid_all[0, :vw]
     act = lt(np.nonzero(w_valid)[0])
     w_slots = lt(slots_all[0, :vw][w_valid])
     pose_lr = _pose_lr(cfg, dev)
-    reg_w = torch.tensor([REG_WINDOW] * vw + [REG_REPLAY] * (nv - vw), device=dev)
+    with sync("dyn.reg_h2d"):
+        reg_w = torch.tensor([REG_WINDOW] * vw + [REG_REPLAY] * (nv - vw), device=dev)
     delta_t = 5 * time_interval
     valid_n = cn.valid
     like = D.cn_floats(cn)
@@ -342,132 +355,137 @@ def _dynamic_rank(comm, gmap: GaussianMap, adam: AdamState, store: KeyframeStore
     seen = torch.zeros(2, dtype=torch.long, device=dev)   # overflow, most pairs of a view
 
     for i in range(num_iters):
-        slots_i, valid_i = slots_all[i], valid_all[i]
-        view_ok = np.concatenate([valid_i, f_valid, f_valid])
-        ids = rank_block(np.nonzero(view_ok)[0], comm.rank, comm.size)
-        m_ids = ids[ids < nv]                              # main views rendered here
-        fb = ids[(ids >= nv) & (ids < nv + vw)] - nv       # window views of flow renders
-        ff = ids[ids >= nv + vw] - nv - vw
-        flows = np.union1d(fb, ff)
-        need = np.union1d(m_ids, flows)                    # main views whose geometry is used
-        n_w = int((m_ids < vw).sum())                      # window main views rendered here
-        dynamic_phase, flow_w = phase_weights(i, num_iters, flow_weight, flow_weight_fine)
+        with span("dyn_iter"):
+            slots_i, valid_i = slots_all[i], valid_all[i]
+            view_ok = np.concatenate([valid_i, f_valid, f_valid])
+            ids = rank_block(np.nonzero(view_ok)[0], comm.rank, comm.size)
+            m_ids = ids[ids < nv]                              # main views rendered here
+            fb = ids[(ids >= nv) & (ids < nv + vw)] - nv       # window views of flow renders
+            ff = ids[ids >= nv + vw] - nv - vw
+            flows = np.union1d(fb, ff)
+            need = np.union1d(m_ids, flows)                    # main views whose geometry is used
+            n_w = int((m_ids < vw).sum())                      # window main views rendered here
+            dynamic_phase, flow_w = phase_weights(i, num_iters, flow_weight, flow_weight_fine)
 
-        if i % rebin_every == 0:
-            # window and flow bins at this iteration's geometry
-            bins_w = bins_f = None
-            need_w = need[need < vw]
-            if need_w.size:
-                with torch.no_grad():
-                    cn0 = D.cn_merge(D.unflatten(flat, like), valid_n)
-                    t_w = torch.cat([store.times[lt(slots_i[need_w])],
-                                     store.times[lt(pairs[flows])]])
-                    d0, _ = _deform_at(cn0, gmap.params.xyz, gmap.dygs, t_w, t_w[:0])
-                    geo = _dyn_view_geometry(
-                        gmap.params, d0, gmap.dygs, store, lt(slots_i[need_w]),
-                        lt(pairs[flows]), lt(np.searchsorted(need_w, flows)),
-                        torch.zeros((need_w.size, 6), device=dev), proj)
-                    bins_w, bins_f = (_bins_of(geo, lt(rows), gmap.alive, proj, cfg, kw)
-                                      for rows in _render_rows(need_w, flows, m_ids[:n_w],
-                                                               fb, ff))
+            if i % rebin_every == 0:
+                # window and flow bins at this iteration's geometry
+                bins_w = bins_f = None
+                need_w = need[need < vw]
+                if need_w.size:
+                    with torch.no_grad():
+                        cn0 = D.cn_merge(D.unflatten(flat, like), valid_n)
+                        t_w = torch.cat([store.times[lt(slots_i[need_w])],
+                                         store.times[lt(pairs[flows])]])
+                        d0, _ = _deform_at(cn0, gmap.params.xyz, gmap.dygs, t_w, t_w[:0])
+                        geo = _dyn_view_geometry(
+                            gmap.params, d0, gmap.dygs, store, lt(slots_i[need_w]),
+                            lt(pairs[flows]), lt(np.searchsorted(need_w, flows)),
+                            torch.zeros((need_w.size, 6), device=dev), proj)
+                        bins_w, bins_f = (_bins_of(geo, lt(rows), gmap.alive, proj, cfg, kw)
+                                          for rows in _render_rows(need_w, flows, m_ids[:n_w],
+                                                                   fb, ff))
 
-        params = gmap.params.map(lambda x: x.detach().requires_grad_(True))
-        flat_p = flat.detach().requires_grad_(True)
-        cn_p = D.cn_merge(D.unflatten(flat_p, like), valid_n)
-        loss = torch.zeros((), device=dev)
-        leaves = list(params) + [flat_p]
-        pack = torch.zeros(1 + n_p + n_d + nv * 8 + 2 * cap, device=dev)
-        t_warp = torch.cat([store.times[lt(slots_i[need])], store.times[lt(pairs[flows])]])
-        if comm.rank == 0:
-            main_v = np.nonzero(valid_i)[0]
-            t_reg = _reg_times(arap_u[i, lt(main_v)], elastic_u[i, lt(main_v)],
-                               store.times[lt(slots_i[main_v])], delta_t)
-        else:
-            t_reg = t_warp.new_zeros((0, 10))
-        if need.size or comm.rank == 0:
-            warp, nodes_t = _deform_at(cn_p, params.xyz, gmap.dygs, t_warp, t_reg)
-        if need.size:
-            dtaus = torch.zeros((need.size, 6), device=dev, requires_grad=True)
-            dexps = torch.zeros((m_ids.size, 2), device=dev, requires_grad=True)
-            geo = _dyn_view_geometry(params, warp, gmap.dygs, store, lt(slots_i[need]),
-                                     lt(pairs[flows]), lt(np.searchsorted(need, flows)), dtaus,
-                                     proj)
-            rows_m, rows_f = _render_rows(need, flows, m_ids, fb, ff)
-            means, scl, qts, opacs, colors, T_all = (x[lt(np.concatenate([rows_m, rows_f]))]
-                                                     for x in geo)
-            taps = torch.zeros((means.shape[0], cap, 2), device=dev, requires_grad=True)
-            nm = m_ids.size
-            bins = _cat_some(bins_w, compute_bins_multi(
-                means[n_w:nm], scl[n_w:nm], qts[n_w:nm], gmap.alive, T_all[n_w:nm], proj,
-                opacs[n_w:nm], config=cfg.raster, **kw) if nm > n_w else None, bins_f)
-            seen = torch.maximum(seen, torch.stack([bins.overflow.any().long(),
-                                                    bins.num_pairs.max().long()]))
-            out = rasterize_multi(means, scl, qts, opacs, colors, gmap.alive, T_all, proj,
-                                  torch.zeros(3, device=dev), mean2d_offsets=taps,
-                                  config=cfg.raster, bins=bins, **kw)
-            m_slots = lt(slots_i[m_ids])
-            exp_abs = store.exposure[m_slots] + dexps
-            images_ab = (torch.exp(exp_abs[:, 0])[:, None, None, None] * out.color[:nm]
-                         + exp_abs[:, 1][:, None, None, None])
-            main_l = mapping_loss_rgbd(
-                images_ab, out.depth[:nm], fetch_images(store, m_slots), store.depths[m_slots],
-                motion_mask=store.motion[m_slots], alpha=cfg.alpha,
-                rgb_boundary_threshold=cfg.rgb_boundary_threshold, rm_dynamic=False,
-                dynamic=dynamic_phase,
-            )
-            loss = loss + torch.sum(main_l)
-            if fb.size:
-                lb = masked_flow_l1(out.color[nm:nm + fb.size, :2], flow_bwd[lt(fb)],
-                                    ~store.motion[lt(slots_i[fb])])
-                loss = loss + torch.sum(flow_w * lb)
-            if ff.size:
-                lf = masked_flow_l1(out.color[nm + fb.size:, :2], flow_fwd[lt(ff)],
-                                    ~store.motion[lt(pairs[ff])])
-                loss = loss + torch.sum(flow_w * lf)
-            leaves += [dtaus, dexps, taps]
-        if comm.rank == 0:
-            loss = loss + torch.sum(reg_w[lt(main_v)] * _regularizers(cn_p, nodes_t, el_knn))
-            loss = loss + cfg.isotropic_weight * isotropic_loss(torch.exp(params.scaling),
-                                                                gmap.alive)
-        if loss.requires_grad:
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-        else:
-            grads = [torch.zeros_like(x) for x in leaves]
-
-        with torch.no_grad():
-            pack[0] = loss
-            pack[1:1 + n_p] = torch.cat([g.reshape(-1) for g in grads[:5]])
-            pack[1 + n_p:1 + n_p + n_d] = grads[5]
+            params = gmap.params.map(lambda x: x.detach().requires_grad_(True))
+            flat_p = flat.detach().requires_grad_(True)
+            cn_p = D.cn_merge(D.unflatten(flat_p, like), valid_n)
+            loss = torch.zeros((), device=dev)
+            leaves = list(params) + [flat_p]
+            pack = torch.zeros(1 + n_p + n_d + nv * 8 + 2 * cap, device=dev)
+            t_warp = torch.cat([store.times[lt(slots_i[need])], store.times[lt(pairs[flows])]])
+            if comm.rank == 0:
+                main_v = np.nonzero(valid_i)[0]
+                t_reg = _reg_times(arap_u[i, lt(main_v)], elastic_u[i, lt(main_v)],
+                                   store.times[lt(slots_i[main_v])], delta_t)
+            else:
+                t_reg = t_warp.new_zeros((0, 10))
+            if need.size or comm.rank == 0:
+                warp, nodes_t = _deform_at(cn_p, params.xyz, gmap.dygs, t_warp, t_reg)
             if need.size:
-                g_taus, g_exps, g_taps = grads[6:]
-                g8 = pack[1 + n_p + n_d:1 + n_p + n_d + nv * 8].view(nv, 8)
-                g8[lt(need), :6] = g_taus
-                g8[lt(m_ids), 6:] = g_exps
-                upd = (out.radii[:nm] > 0).to(torch.float32)
-                norms = torch.linalg.norm(g_taps[:nm], dim=-1)
-                pack[-2 * cap:-cap] = torch.sum(norms * upd, dim=0)
-                pack[-cap:] = torch.sum(upd, dim=0)
-            pack = comm.psum(pack)
-            loss_val = pack[0]
-            g_params = type(gmap.params)(*(g.view_as(p) for g, p in zip(
-                torch.split(pack[1:1 + n_p], sizes), gmap.params)))
-            gmap = gmap._replace(grad_accum=gmap.grad_accum + pack[-2 * cap:-cap],
-                                 denom=gmap.denom + pack[-cap:])
-            gmap, adam = _map_step(gmap, adam, g_params, i, step_after, iter_base, cfg)
-            d_count += 1
-            flat, mu_f, nu_f = _adam_flat(flat, pack[1 + n_p:1 + n_p + n_d], mu_f, nu_f,
-                                          d_count)
-            gp = torch.zeros((vw, 8), device=dev)
-            gp[act] = pack[1 + n_p + n_d:1 + n_p + n_d + vw * 8].view(vw, 8)[act]
-            pose_adam = _pose_step(pose_adam, gp, mask8, pose_lr, store, act, w_slots)
+                dtaus = torch.zeros((need.size, 6), device=dev, requires_grad=True)
+                dexps = torch.zeros((m_ids.size, 2), device=dev, requires_grad=True)
+                geo = _dyn_view_geometry(params, warp, gmap.dygs, store, lt(slots_i[need]),
+                                         lt(pairs[flows]), lt(np.searchsorted(need, flows)), dtaus,
+                                         proj)
+                rows_m, rows_f = _render_rows(need, flows, m_ids, fb, ff)
+                means, scl, qts, opacs, colors, T_all = (x[lt(np.concatenate([rows_m, rows_f]))]
+                                                         for x in geo)
+                taps = torch.zeros((means.shape[0], cap, 2), device=dev, requires_grad=True)
+                nm = m_ids.size
+                bins = _cat_some(bins_w, compute_bins_multi(
+                    means[n_w:nm], scl[n_w:nm], qts[n_w:nm], gmap.alive, T_all[n_w:nm], proj,
+                    opacs[n_w:nm], config=cfg.raster, **kw) if nm > n_w else None, bins_f)
+                seen = torch.maximum(seen, torch.stack([bins.overflow.any().long(),
+                                                        bins.num_pairs.max().long()]))
+                out = rasterize_multi(means, scl, qts, opacs, colors, gmap.alive, T_all, proj,
+                                      torch.zeros(3, device=dev), mean2d_offsets=taps,
+                                      config=cfg.raster, bins=bins, **kw)
+                m_slots = lt(slots_i[m_ids])
+                exp_abs = store.exposure[m_slots] + dexps
+                images_ab = (torch.exp(exp_abs[:, 0])[:, None, None, None] * out.color[:nm]
+                             + exp_abs[:, 1][:, None, None, None])
+                main_l = mapping_loss_rgbd(
+                    images_ab, out.depth[:nm], fetch_images(store, m_slots), store.depths[m_slots],
+                    motion_mask=store.motion[m_slots], alpha=cfg.alpha,
+                    rgb_boundary_threshold=cfg.rgb_boundary_threshold, rm_dynamic=False,
+                    dynamic=dynamic_phase,
+                )
+                loss = loss + torch.sum(main_l)
+                if fb.size:
+                    lb = masked_flow_l1(out.color[nm:nm + fb.size, :2], flow_bwd[lt(fb)],
+                                        ~store.motion[lt(slots_i[fb])])
+                    loss = loss + torch.sum(flow_w * lb)
+                if ff.size:
+                    lf = masked_flow_l1(out.color[nm + fb.size:, :2], flow_fwd[lt(ff)],
+                                        ~store.motion[lt(pairs[ff])])
+                    loss = loss + torch.sum(flow_w * lf)
+                leaves += [dtaus, dexps, taps]
+            if comm.rank == 0:
+                loss = loss + torch.sum(reg_w[lt(main_v)] * _regularizers(cn_p, nodes_t, el_knn))
+                loss = loss + cfg.isotropic_weight * isotropic_loss(torch.exp(params.scaling),
+                                                                    gmap.alive)
+            if loss.requires_grad:
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            else:
+                grads = [torch.zeros_like(x) for x in leaves]
+
+            with torch.no_grad():
+                pack[0] = loss
+                pack[1:1 + n_p] = torch.cat([g.reshape(-1) for g in grads[:5]])
+                pack[1 + n_p:1 + n_p + n_d] = grads[5]
+                if need.size:
+                    g_taus, g_exps, g_taps = grads[6:]
+                    g8 = pack[1 + n_p + n_d:1 + n_p + n_d + nv * 8].view(nv, 8)
+                    g8[lt(need), :6] = g_taus
+                    g8[lt(m_ids), 6:] = g_exps
+                    upd = (out.radii[:nm] > 0).to(torch.float32)
+                    norms = torch.linalg.norm(g_taps[:nm], dim=-1)
+                    pack[-2 * cap:-cap] = torch.sum(norms * upd, dim=0)
+                    pack[-cap:] = torch.sum(upd, dim=0)
+                pack = comm.psum(pack)
+                loss_val = pack[0]
+                g_params = type(gmap.params)(*(g.view_as(p) for g, p in zip(
+                    torch.split(pack[1:1 + n_p], sizes), gmap.params)))
+                gmap = gmap._replace(grad_accum=gmap.grad_accum + pack[-2 * cap:-cap],
+                                     denom=gmap.denom + pack[-cap:])
+                gmap, adam = _map_step(gmap, adam, g_params, i, step_after, iter_base, cfg)
+                d_count += 1
+                flat, mu_f, nu_f = _adam_flat(flat, pack[1 + n_p:1 + n_p + n_d], mu_f, nu_f,
+                                              d_count)
+                gp = torch.zeros((vw, 8), device=dev)
+                gp[act] = pack[1 + n_p + n_d:1 + n_p + n_d + vw * 8].view(vw, 8)[act]
+                pose_adam = _pose_step(pose_adam, gp, mask8, pose_lr, store, act, w_slots)
 
     seen = comm.pmax(seen)
+    with sync("dyn.loss"):
+        final_loss = float(loss_val)
+    with sync("dyn.seen", 2):
+        overflow, num_pairs = bool(seen[0]), int(seen[1])
     return _DynRankResult(
         gmap=gmap, adam=adam, pose_adam=pose_adam, T_cw=store.T_cw, exposure=store.exposure,
         deform=D.cn_merge(D.unflatten(flat, like), valid_n),
         deform_adam=DeformAdam(D.unflatten(mu_f, like), D.unflatten(nu_f, like), d_count),
-        final_loss=float(loss_val), overflow=bool(seen[0]), num_pairs=int(seen[1]))
+        final_loss=final_loss, overflow=overflow, num_pairs=num_pairs)
 
 
 def _render_rows(need: np.ndarray, flows: np.ndarray, m_ids, fb, ff):

@@ -60,6 +60,13 @@ while the viewer is paused; the viewer closes at the end of `run()`. With
 (without the package, a line is logged and the run goes on). A RealSense
 dataset's own calibration sets the intrinsics.
 
+`run()` makes the tracer's spans (utils/trace.py): a `frame` per frame,
+holding `fetch`, `init` (frame 0) and the phases `track`, `kf_check` and
+`keyframe`, whose seconds are `metrics["phase_s"]` (with `dyn_mapping`,
+the 4D mapping call); a keyframe phase holds `spawn`, `window`, the
+mapping calls' spans, `densify` and `resync`. Its reads of device values
+and copies to the device are sync sites (`runner.*`).
+
 The port runs on the CUDA device unless `device="cpu"` is passed; with no
 device and no CUDA it raises. It has no fixed pair buffer, so the
 reference's pair-budget ladder and re-runs on overflow are gone; an
@@ -100,6 +107,7 @@ from fourdgs_torch.slam.tracking import TrackingConfig, track_frame
 from fourdgs_torch.utils.config import merge_hparams
 from fourdgs_torch.utils.draws import TorchDraws
 from fourdgs_torch.utils.logging import Log
+from fourdgs_torch.utils.trace import span, sync
 
 
 def _zero_phases() -> dict:
@@ -381,11 +389,12 @@ class SLAM:
         return n
 
     def _densify(self, min_opacity: float, extent: float, max_screen_size: float):
-        self.gmap, self.adam = gm.densify_and_prune(
-            self.gmap, self.adam, self.draws.normal2(self.gmap.params.xyz.shape),
-            self.densify_grad_threshold, min_opacity, extent, max_screen_size,
-        )
-        self._maybe_grow()
+        with span("densify"):
+            self.gmap, self.adam = gm.densify_and_prune(
+                self.gmap, self.adam, self.draws.normal2(self.gmap.params.xyz.shape),
+                self.densify_grad_threshold, min_opacity, extent, max_screen_size,
+            )
+            self._maybe_grow()
 
     def _map(self, slots, valid, opt_pose, pool, pool_size, pose_adam, chunk,
              step_after, extra_masks=None):
@@ -400,12 +409,14 @@ class SLAM:
         return res
 
     def _pose_tensor(self, T) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(T), dtype=torch.float32, device=self.device)
+        with sync("runner.pose_h2d"):
+            return torch.as_tensor(np.asarray(T), dtype=torch.float32, device=self.device)
 
     def _visibility_at(self, T_cw: torch.Tensor):
         """(n_touched > 0 as numpy, the render) at pose T_cw."""
         out = render_keyframe(self.gmap, T_cw, self.intr, self.map_cfg)
-        return (out.n_touched > 0).cpu().numpy(), out
+        with sync("runner.visibility"):
+            return (out.n_touched > 0).cpu().numpy(), out
 
     def _initialize(self, frame: Frame):
         T_gt = np.asarray(frame.T_gt)
@@ -443,7 +454,9 @@ class SLAM:
 
         vis, out = self._visibility_at(self.store.T_cw[0])
         self.occ_visibility[0] = vis
-        self.median_depth = float(median_depth(out.depth, out.alpha)[0])
+        med = median_depth(out.depth, out.alpha)[0]
+        with sync("runner.median_depth"):
+            self.median_depth = float(med)
         loss = float("nan") if res is None else res.final_loss
         Log(f"Initialized map: {self.gmap.num_alive} Gaussians, final loss {loss:.4f}",
             tag="4DGS-SLAM")
@@ -471,8 +484,10 @@ class SLAM:
         key_opt = list(self.window[:3])
         if len(self.window) > 3:
             anchor = self.window[0]
+            with sync("runner.window_depth"):
+                depth = self.store.depths[self.kf_slot[anchor]].cpu().numpy()
             picks = kfs.keyframe_selection_overlap(
-                self.store.depths[self.kf_slot[anchor]].cpu().numpy(),
+                depth,
                 self.poses_est[anchor],
                 self.intr,
                 {k: self.poses_est[k] for k in self.kf_indices},
@@ -515,7 +530,8 @@ class SLAM:
         densify/reset cadence boundaries; a full window marks the map
         initialised afterwards (the reference's prune pass, which prunes
         nothing on either path)."""
-        slots, valid, opt_pose, pool, pool_size, key_opt = self._window_arrays()
+        with span("window"):
+            slots, valid, opt_pose, pool, pool_size, key_opt = self._window_arrays()
         extra_masks = self._reproject_masks(key_opt) if self.rm_initdy else None
         pose_adam = init_pose_adam(self.map_cfg.num_window_views, self.device)
         done = 0
@@ -537,7 +553,8 @@ class SLAM:
                     self.gmap, self.adam, torch.any(vis, dim=0)
                 )
 
-        self._resync_window(key_opt, count_obs=True)
+        with span("resync"):
+            self._resync_window(key_opt, count_obs=True)
         if len(self.window) == self.window_size:
             self.initialized = True
 
@@ -574,13 +591,15 @@ class SLAM:
                                 self.map_cfg)
         if count_obs:
             self.gmap = self.gmap._replace(n_obs=vis.sum(dim=0).to(torch.int32))
-        vis = vis.cpu().numpy()
+        with sync("runner.resync_visibility"):
+            vis = vis.cpu().numpy()
         for i, kf in enumerate(in_window):
             self.occ_visibility[kf] = vis[i]
         for kf in key_opt:
             slot = self.kf_slot[kf]
-            self.poses_est[kf] = self.store.T_cw[slot].cpu().numpy()
-            self.exposures[kf] = self.store.exposure[slot].cpu().numpy()
+            with sync("runner.resync_pose", 2):
+                self.poses_est[kf] = self.store.T_cw[slot].cpu().numpy()
+                self.exposures[kf] = self.store.exposure[slot].cpu().numpy()
 
     # ------------------------------------------------------------------
     # the 4D path
@@ -641,25 +660,27 @@ class SLAM:
         key_opt = self._map_dynamic(total_iters, step_after)
         if (self.iteration_count % self.gaussian_update_every) < total_iters:
             self._densify(self.gaussian_th, self.gaussian_extent, self.size_threshold)
-        self._resync_window(key_opt, count_obs=False)
+        with span("resync"):
+            self._resync_window(key_opt, count_obs=False)
 
     def _map_dynamic(self, total_iters: int, step_after: int) -> list[int]:
         """The `map_chunk_dynamic` of a keyframe phase over the window;
         returns the mapped keyframes (key_opt)."""
-        slots, valid, opt_pose, pool, pool_size, key_opt = self._window_arrays()
+        with span("window"):
+            slots, valid, opt_pose, pool, pool_size, key_opt = self._window_arrays()
         pair_slots, fwd, bwd = self._flow_arrays(key_opt)
         nv = self.map_cfg.num_views
-        _pt = time.time()
-        res = mdyn.map_chunk_dynamic(
-            self.gmap, self.adam, self.store, self.deform, self.deform_adam,
-            slots, valid, opt_pose, pair_slots, fwd, bwd, pool, pool_size,
-            init_pose_adam(self.map_cfg.num_window_views, self.device),
-            self.draws.dynamic_chunk(total_iters, pool_size, nv),
-            total_iters, step_after, self.iteration_count, self.intr, self.map_cfg,
-            flow_weight=self.flow_weight, flow_weight_fine=self.flow_weight_fine,
-            time_interval=self.time_interval, mesh=self._mapping_mesh(),
-        )
-        self._phase["dyn_mapping"] += time.time() - _pt
+        with span("dyn_mapping", clock=True) as phase:
+            res = mdyn.map_chunk_dynamic(
+                self.gmap, self.adam, self.store, self.deform, self.deform_adam,
+                slots, valid, opt_pose, pair_slots, fwd, bwd, pool, pool_size,
+                init_pose_adam(self.map_cfg.num_window_views, self.device),
+                self.draws.dynamic_chunk(total_iters, pool_size, nv),
+                total_iters, step_after, self.iteration_count, self.intr, self.map_cfg,
+                flow_weight=self.flow_weight, flow_weight_fine=self.flow_weight_fine,
+                time_interval=self.time_interval, mesh=self._mapping_mesh(),
+            )
+        self._phase["dyn_mapping"] += phase.seconds
         self._phase["dyn_iters"] += total_iters
         self._note_pairs(res.num_pairs, res.overflow)
         self.gmap, self.adam, self.store = res.gmap, res.adam, res.store
@@ -680,10 +701,12 @@ class SLAM:
             self.metrics["resets"] = self.metrics.get("resets", 0) + 1
             self._reset(idx, frame)
             return
-        self._spawn_gaussians(frame, self._pose_tensor(self.poses_est[idx]),
-                              self.exposures[idx], init=False)
+        with span("spawn"):
+            self._spawn_gaussians(frame, self._pose_tensor(self.poses_est[idx]),
+                                  self.exposures[idx], init=False)
         if self.dynamic and not self.deform_init and idx >= self.dystart:
-            self._init_deform(idx, frame)
+            with span("deform_init"):
+                self._init_deform(idx, frame)
         # map parameters step only after the first 100 of a long phase
         iters = self.kf_iters
         step_after = 100 if iters > 100 else -1
@@ -721,11 +744,14 @@ class SLAM:
         `warmup_frames` N > 0 and more than N frames, also `fps_steady`:
         the frames from N on over the seconds from frame N's start. The
         device is synchronised there and the phase clocks start again, so
-        `phase_s` holds the steady state's. The mesh, if any, is closed at
-        the end, unless the runner is used in a `with` block."""
+        `phase_s` holds the steady state's. `phase_s` is set also when the
+        run stops early, on an exception (from the dataset, say). The mesh,
+        if any, is closed at the end, unless the runner is used in a `with`
+        block."""
         try:
             return self._run(warmup_frames)
         finally:
+            self.metrics["phase_s"] = dict(self._phase)
             self._close_viewer()
             self._end_call()
 
@@ -740,69 +766,76 @@ class SLAM:
         t_warm = t0
         self._phase = _zero_phases()
         last_kf = 0
-        for idx, frame in iter_frames(self.dataset, self.edge_threshold, self.n_frames,
-                                      device=self.device):
-            if idx == warmup_frames:
-                self._sync()
-                t_warm = time.time()
-                self._phase = _zero_phases()   # steady-state attribution
-            if idx == 0:
-                self._initialize(frame)
-                last_kf = 0
-                continue
+        frames = iter_frames(self.dataset, self.edge_threshold, self.n_frames,
+                             device=self.device)
+        for idx in range(self.n_frames):
+            with span("frame", 1):
+                _, frame = next(frames)
+                if idx == warmup_frames:
+                    self._sync()
+                    t_warm = time.time()
+                    self._phase = _zero_phases()   # steady-state attribution
+                if idx == 0:
+                    with span("init"):
+                        self._initialize(frame)
+                    last_kf = 0
+                    continue
 
-            self.initialized = self.initialized or len(self.window) == self.window_size
-            _pt = time.time()
-            res = track_frame(
-                self.gmap, frame, self._pose_tensor(self.poses_est[idx - 1]),
-                self._pose_tensor(self.exposures.get(idx - 1, np.zeros(2))),
-                self.intr, self.track_cfg,
-            )
-            self._note_pairs(res.num_pairs, res.overflow)
-            self.poses_est[idx] = res.T_cw.cpu().numpy()
-            self.exposures[idx] = res.exposure.cpu().numpy()
-            self.median_depth = float(res.median_depth)
-            self._phase["track"] += time.time() - _pt
-            self._phase["track_iters"] += res.n_iters
-            if self.viewer is not None:
-                self.viewer.maybe_update(self, idx)
-                self.viewer.wait_if_paused()   # blocks between frames while paused
+                self.initialized = self.initialized or len(self.window) == self.window_size
+                with span("track", clock=True) as phase:
+                    res = track_frame(
+                        self.gmap, frame, self._pose_tensor(self.poses_est[idx - 1]),
+                        self._pose_tensor(self.exposures.get(idx - 1, np.zeros(2))),
+                        self.intr, self.track_cfg,
+                    )
+                    self._note_pairs(res.num_pairs, res.overflow)
+                    with sync("runner.track_pose", 2):
+                        self.poses_est[idx] = res.T_cw.cpu().numpy()
+                        self.exposures[idx] = res.exposure.cpu().numpy()
+                    with sync("runner.median_depth"):
+                        self.median_depth = float(res.median_depth)
+                self._phase["track"] += phase.seconds
+                self._phase["track_iters"] += res.n_iters
+                if self.viewer is not None:
+                    self.viewer.maybe_update(self, idx)
+                    self.viewer.wait_if_paused()   # blocks between frames while paused
 
-            check_time = (idx - last_kf) >= self.kf_interval
-            # the 4D path makes the dystart frame a keyframe
-            force_dystart = self.dynamic and idx == self.dystart
-            if not (check_time or force_dystart):
-                continue
-            _pt = time.time()
-            curr_visibility, _ = self._visibility_at(res.T_cw)
-            last_vis = self.occ_visibility[last_kf]
-            if len(self.window) < self.window_size:
-                union = np.count_nonzero(curr_visibility | last_vis)
-                inter = np.count_nonzero(curr_visibility & last_vis)
-                create_kf = (inter / union if union else 0.0) < self.kf_overlap
-            else:
-                create_kf = kfs.is_keyframe(
-                    self.poses_est[idx], self.poses_est[last_kf], self.median_depth,
-                    curr_visibility, last_vis, self.kf_translation,
-                    self.kf_min_translation, self.kf_overlap,
-                )
-            create_kf = (check_time and (create_kf or (idx - last_kf) >= 5)) or force_dystart
-            self._phase["kf_check"] += time.time() - _pt
+                check_time = (idx - last_kf) >= self.kf_interval
+                # the 4D path makes the dystart frame a keyframe
+                force_dystart = self.dynamic and idx == self.dystart
+                if not (check_time or force_dystart):
+                    continue
+                with span("kf_check", clock=True) as phase:
+                    curr_visibility, _ = self._visibility_at(res.T_cw)
+                    last_vis = self.occ_visibility[last_kf]
+                    if len(self.window) < self.window_size:
+                        union = np.count_nonzero(curr_visibility | last_vis)
+                        inter = np.count_nonzero(curr_visibility & last_vis)
+                        create_kf = (inter / union if union else 0.0) < self.kf_overlap
+                    else:
+                        create_kf = kfs.is_keyframe(
+                            self.poses_est[idx], self.poses_est[last_kf], self.median_depth,
+                            curr_visibility, last_vis, self.kf_translation,
+                            self.kf_min_translation, self.kf_overlap,
+                        )
+                    create_kf = ((check_time and (create_kf or (idx - last_kf) >= 5))
+                                 or force_dystart)
+                self._phase["kf_check"] += phase.seconds
 
-            if create_kf:
-                _pt = time.time()
-                self._handle_keyframe(idx, frame, curr_visibility)
-                self._sync()
-                dt = time.time() - _pt
-                self._phase["keyframe"] += dt
-                last_kf = idx
-                Log(f"KF {idx}: {self.gmap.num_alive} gaussians, window {self.window} "
-                    f"({dt:.1f}s)", tag="Backend")
-                if (results.get("save_trj", False) and self.save_dir
-                        and self.kf_total % int(results.get("save_trj_kf_intv", 5)) == 0):
-                    stats = self.eval_ate(label=f"frame_{idx}")
-                    Log(f"ATE RMSE @ frame {idx}: {stats['rmse']:.4f} m", tag="Eval")
-                    self._wandb_log({"ate": stats["rmse"], "frame": idx})
+                if create_kf:
+                    with span("keyframe", clock=True) as phase:
+                        self._handle_keyframe(idx, frame, curr_visibility)
+                        self._sync()
+                    dt = phase.seconds
+                    self._phase["keyframe"] += dt
+                    last_kf = idx
+                    Log(f"KF {idx}: {self.gmap.num_alive} gaussians, window {self.window} "
+                        f"({dt:.1f}s)", tag="Backend")
+                    if (results.get("save_trj", False) and self.save_dir
+                            and self.kf_total % int(results.get("save_trj_kf_intv", 5)) == 0):
+                        stats = self.eval_ate(label=f"frame_{idx}")
+                        Log(f"ATE RMSE @ frame {idx}: {stats['rmse']:.4f} m", tag="Eval")
+                        self._wandb_log({"ate": stats["rmse"], "frame": idx})
 
         self._sync()
         elapsed = time.time() - t0
@@ -821,12 +854,12 @@ class SLAM:
                 f"{self.metrics['fps_steady']:.3f}")
         self.metrics["n_frames"] = self.n_frames
         self.metrics["n_gaussians"] = self.gmap.num_alive
-        self.metrics["phase_s"] = dict(ph)
         return self.metrics
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with sync("runner.sync"):
+                torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     def color_refinement(self, iterations: int = 1500):

@@ -15,6 +15,13 @@ exactly as in the reference.
 
 With `monocular` the loss is RGB only (`tracking_loss_rgb`); the median
 depth of the result still comes from the final render.
+
+Spans (utils/trace.py): `track_frame` (work: the iterations taken), with
+a `bin` per round, a `track_iter` per iteration and the final
+`track_render`. Sync sites: the learning rates' copy (`track.lr_h2d`),
+each round's `bin.overflow` and `bin.num_pairs`, each iteration's
+`track.step_norm` and `track.loss`, and the final render's
+`track.render_overflow` and `track.render_pairs`.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from fourdgs_torch.slam.losses import (
     tracking_loss_rgb,
     tracking_loss_rgbd,
 )
+from fourdgs_torch.utils.trace import span, sync
 
 
 class TrackingConfig(NamedTuple):
@@ -75,6 +83,13 @@ def track_frame(
     use_motion_mask: bool = True,
 ) -> TrackResult:
     """Optimize the frame pose against the static map."""
+    with span("track_frame") as sp:
+        res = _track(gmap, frame, T_init, exposure_init, intr, config, use_motion_mask)
+        sp.work = res.n_iters
+    return res
+
+
+def _track(gmap, frame, T_init, exposure_init, intr, config, use_motion_mask) -> TrackResult:
     dev = T_init.device
     static_alive = gmap.alive & ~gmap.dygs
     with torch.no_grad():
@@ -84,8 +99,9 @@ def track_frame(
     proj = intr.proj(device=dev)
     bg = torch.zeros(3, device=dev)
     kw = intr.raster_kw()
-    lr = torch.tensor([config.lr_trans] * 3 + [config.lr_rot] * 3
-                      + [config.lr_exposure] * 2, device=dev)
+    with sync("track.lr_h2d"):
+        lr = torch.tensor([config.lr_trans] * 3 + [config.lr_rot] * 3
+                          + [config.lr_exposure] * 2, device=dev)
     motion = frame.motion_mask if use_motion_mask else None
 
     def render_at(T_cw, bins=None):
@@ -108,45 +124,58 @@ def track_frame(
             break
         bins = compute_bins(xyz, scales, quats, static_alive, T_cw, proj, opac,
                             config=config.raster, **kw)
-        ov_seen = ov_seen or bool(bins.overflow.any())
-        pm_seen = max(pm_seen, int(bins.num_pairs.max()))
+        if not ov_seen:
+            with sync("bin.overflow"):
+                ov_seen = bool(bins.overflow.any())
+        with sync("bin.num_pairs"):
+            pm_seen = max(pm_seen, int(bins.num_pairs.max()))
         for _ in range(rb):
             if count >= config.max_iters or converged:
                 break
-            # delta = [trans(3), rot(3), exposure_a, exposure_b] at [0, exp]
-            delta = torch.cat([torch.zeros(6, device=dev), exp_ab]).requires_grad_(True)
-            T = se3_exp(delta[:6]) @ T_cw
-            out = render_at(T, bins)
-            image_ab = apply_exposure(out.color, delta[6], delta[7])
-            if config.monocular:
-                loss = tracking_loss_rgb(
-                    image_ab, out.alpha, frame.image, frame.grad_mask, motion_mask=motion,
-                    rgb_boundary_threshold=config.rgb_boundary_threshold,
-                )
-            else:
-                loss = tracking_loss_rgbd(
-                    image_ab, out.depth, out.alpha, frame.image, frame.depth,
-                    frame.grad_mask, motion_mask=motion, alpha=config.alpha,
-                    rgb_boundary_threshold=config.rgb_boundary_threshold,
-                )
-            (g,) = torch.autograd.grad(loss, delta)
-            with torch.no_grad():
-                count += 1
-                mu = b1 * mu + (1 - b1) * g
-                nu = b2 * nu + (1 - b2) * g * g
-                step = lr * (mu / (1 - b1**count)) / (torch.sqrt(nu / (1 - b2**count)) + eps)
-                tau = -step[:6]
-                T_cw = se3_exp(tau) @ T_cw
-                exp_ab = exp_ab - step[6:8]
-                tau_norm = float(torch.linalg.norm(tau))
-            loss_val = float(loss.detach())
+            with span("track_iter"):
+                # delta = [trans(3), rot(3), exposure_a, exposure_b] at [0, exp]
+                delta = torch.cat([torch.zeros(6, device=dev), exp_ab]).requires_grad_(True)
+                T = se3_exp(delta[:6]) @ T_cw
+                out = render_at(T, bins)
+                image_ab = apply_exposure(out.color, delta[6], delta[7])
+                if config.monocular:
+                    loss = tracking_loss_rgb(
+                        image_ab, out.alpha, frame.image, frame.grad_mask, motion_mask=motion,
+                        rgb_boundary_threshold=config.rgb_boundary_threshold,
+                    )
+                else:
+                    loss = tracking_loss_rgbd(
+                        image_ab, out.depth, out.alpha, frame.image, frame.depth,
+                        frame.grad_mask, motion_mask=motion, alpha=config.alpha,
+                        rgb_boundary_threshold=config.rgb_boundary_threshold,
+                    )
+                (g,) = torch.autograd.grad(loss, delta)
+                with torch.no_grad():
+                    count += 1
+                    mu = b1 * mu + (1 - b1) * g
+                    nu = b2 * nu + (1 - b2) * g * g
+                    step = (lr * (mu / (1 - b1**count))
+                            / (torch.sqrt(nu / (1 - b2**count)) + eps))
+                    tau = -step[:6]
+                    T_cw = se3_exp(tau) @ T_cw
+                    exp_ab = exp_ab - step[6:8]
+                    with sync("track.step_norm"):
+                        tau_norm = float(torch.linalg.norm(tau))
+                with sync("track.loss"):
+                    loss_val = float(loss.detach())
             converged = tau_norm < config.converged_threshold
             if tau_norm > config.rebin_delta_threshold:
                 break  # stale bins: the next round re-bins at the new pose
 
-    with torch.no_grad():
+    with torch.no_grad(), span("track_render"):
         out = render_at(T_cw)
         med, _, _ = median_depth(out.depth, out.alpha)
+        overflow = ov_seen
+        if not overflow:
+            with sync("track.render_overflow"):
+                overflow = bool(out.overflow)
+        with sync("track.render_pairs"):
+            num_pairs = max(pm_seen, int(out.num_pairs))
     return TrackResult(
         T_cw=T_cw,
         exposure=exp_ab,
@@ -156,6 +185,6 @@ def track_frame(
         visibility=out.n_touched > 0,
         opacity=out.alpha,
         depth=out.depth,
-        overflow=ov_seen or bool(out.overflow),
-        num_pairs=max(pm_seen, int(out.num_pairs)),
+        overflow=overflow,
+        num_pairs=num_pairs,
     )
