@@ -13,8 +13,6 @@ from __future__ import annotations
 
 import torch
 
-from fourdgs_torch.utils.trace import sync
-
 _EPS = 1e-5
 
 
@@ -93,9 +91,10 @@ def se3_exp(tau: torch.Tensor) -> torch.Tensor:
     R = so3_exp(theta)
     t = torch.einsum("...ij,...j->...i", se3_V(theta), rho)
     top = torch.cat([R, t[..., None]], dim=-1)
-    with sync("se3.bottom_h2d"):
-        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=tau.dtype, device=tau.device)
-    bottom = bottom.expand(tau.shape[:-1] + (1, 4))
+    # the row [0, 0, 0, 1] made on the device: no copy from the host, so
+    # the map can be captured in a CUDA graph
+    bottom = torch.zeros(tau.shape[:-1] + (1, 4), dtype=tau.dtype, device=tau.device)
+    bottom[..., 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -92,6 +92,32 @@ def compute_bins(means3d, scales, quats, alive, T_cw, proj, opacities=None, **kw
                               opacities, **kw)
 
 
+def view_fields(
+    means3d, scales, quats, opacities, colors, alive, T_cws, proj, *,
+    fx: float, fy: float, width: int, height: int, tan_fovx: float,
+    tan_fovy: float, scale_mod: float = 1.0,
+    mean2d_offsets: torch.Tensor | None = None,
+    config: RasterConfig = RasterConfig(),
+):
+    """Preprocess V views and lay out the compositor's field table:
+    returns (screen Gaussians, screen means, field table (V, N+1, 10) with
+    a zero pad row at N). No binning, no host read."""
+    v = T_cws.shape[0]
+    sg = preprocess(
+        means3d, scales, quats, opacities, colors, alive, T_cws, proj,
+        fx=fx, fy=fy, width=width, height=height, tan_fovx=tan_fovx,
+        tan_fovy=tan_fovy, scale_mod=scale_mod, max_radius=config.max_radius,
+    )
+    mean2d = sg.mean2d if mean2d_offsets is None else sg.mean2d + mean2d_offsets
+    n = mean2d.shape[-2]
+    color = sg.color.expand((v, n, sg.color.shape[-1]))
+    fields = torch.cat(
+        [mean2d, sg.conic, sg.depth[..., None], sg.opacity[..., None], color], dim=-1
+    )  # (V, N, 10) [mx, my, ca, cb, cc, depth, op, r, g, b]
+    fields = torch.cat([fields, fields.new_zeros((v, 1, fields.shape[-1]))], dim=1)
+    return sg, mean2d, fields
+
+
 def screen_fields(
     means3d, scales, quats, opacities, colors, alive, T_cws, proj, *,
     fx: float, fy: float, width: int, height: int, tan_fovx: float,
@@ -103,29 +129,38 @@ def screen_fields(
     """Preprocess V views and lay out what the compositor takes: returns
     (screen Gaussians, field table (V, N+1, 10) with a zero pad row at N,
     bins, tile grid)."""
-    v = T_cws.shape[0]
-    sg = preprocess(
+    sg, mean2d, fields = view_fields(
         means3d, scales, quats, opacities, colors, alive, T_cws, proj,
         fx=fx, fy=fy, width=width, height=height, tan_fovx=tan_fovx,
-        tan_fovy=tan_fovy, scale_mod=scale_mod, max_radius=config.max_radius,
+        tan_fovy=tan_fovy, scale_mod=scale_mod, mean2d_offsets=mean2d_offsets,
+        config=config,
     )
-    mean2d = sg.mean2d if mean2d_offsets is None else sg.mean2d + mean2d_offsets
-    tx_n, ty_n = tile_grid(width, height, TILE)
     if bins is None:
-        with span("bin", v):
+        with span("bin", T_cws.shape[0]):
             bins = bin_gaussians(
                 mean2d.detach(), sg.depth.detach(), sg.radius, sg.visible,
                 width=width, height=height, tile=TILE,
                 max_rect=config.max_rect, max_pairs=config.max_pairs,
                 opacity=sg.opacity.detach(), cull_radius=sg.sigma3.detach(),
             )
-    n = mean2d.shape[-2]
-    color = sg.color.expand((v, n, sg.color.shape[-1]))
-    fields = torch.cat(
-        [mean2d, sg.conic, sg.depth[..., None], sg.opacity[..., None], color], dim=-1
-    )  # (V, N, 10) [mx, my, ca, cb, cc, depth, op, r, g, b]
-    fields = torch.cat([fields, fields.new_zeros((v, 1, fields.shape[-1]))], dim=1)
-    return sg, fields, bins, TileGrid(tx_n, ty_n, width, height)
+    return sg, fields, bins, view_grid(width, height)
+
+
+def view_grid(width: int, height: int) -> TileGrid:
+    """The tile grid of a width x height view."""
+    tx_n, ty_n = tile_grid(width, height, TILE)
+    return TileGrid(tx_n, ty_n, width, height)
+
+
+def image_from_tiles(out: torch.Tensor, grid: TileGrid, bg: torch.Tensor):
+    """The compositor's per-tile outputs (V*T, 5, 256) of V views as
+    images: (color (V, 3, H, W) on background `bg`, depth (V, H, W),
+    alpha (V, H, W), T_final (V, H, W))."""
+    img5 = _assemble_image(out.reshape(-1, grid.tiles, NOUT, TILE * TILE), grid.tx_n,
+                           grid.ty_n, TILE, grid.width, grid.height)
+    t_final = img5[:, 4]
+    color = img5[:, :3] + t_final[:, None] * bg[None, :, None, None]
+    return color, img5[:, 3], 1.0 - t_final, t_final
 
 
 def rasterize_multi(
@@ -154,16 +189,13 @@ def rasterize_multi(
         tan_fovy=tan_fovy, scale_mod=scale_mod, mean2d_offsets=mean2d_offsets,
         config=config, bins=bins,
     )
-    v, n = fields.shape[0], fields.shape[1] - 1
+    n = fields.shape[1] - 1
     out, n_touched = composite(fields, bins, grid)
-    img5 = _assemble_image(out.reshape(v, grid.tiles, NOUT, -1), grid.tx_n, grid.ty_n,
-                           TILE, width, height)
-    t_final = img5[:, 4]
-    color_img = img5[:, :3] + t_final[:, None] * bg[None, :, None, None]
+    color, depth, alpha, t_final = image_from_tiles(out, grid, bg)
     return RenderOutputs(
-        color=color_img,
-        depth=img5[:, 3],
-        alpha=1.0 - t_final,
+        color=color,
+        depth=depth,
+        alpha=alpha,
         n_touched=n_touched[:, :n],
         T_final=t_final,
         radii=sg.radius,

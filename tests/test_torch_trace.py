@@ -218,9 +218,10 @@ class _Runs:
         self.off = (_track(state, "cpu"), _map(state, "cpu"))
         trace.clear()
         with trace.enable():
-            before = trace.counts()["sync"]
+            before, iters = trace.counts()["sync"], trace.counts()["track"]
             track = _track(state, "cpu")
             self.track_syncs = _site_delta(before)
+            self.track_iters = {k: v - iters[k] for k, v in trace.counts()["track"].items()}
             before = trace.counts()["sync"]
             self.on = (track, _map(state, "cpu"))
             self.map_syncs = _site_delta(before)
@@ -245,15 +246,20 @@ def test_track_frame_syncs_by_site(runs):
     assert rounds > math.ceil(res.n_iters / 8)   # steps past the threshold cut rounds short
     assert kids[-1] == "track_render"
     n = res.n_iters
-    want = {"track.lr_h2d": 1, "proj.h2d": 1, "se3.bottom_h2d": 2 * n,
-            "bin.overflow": rounds, "bin.num_pairs": rounds, "track.step_norm": n,
-            "track.loss": n, "median.nonzero": 1, "track.render_overflow": 1,
-            "track.render_pairs": 1, **_bins(rounds + 1)}
+    want = {"track.lr_h2d": 1, "proj.h2d": 1, "bin.overflow": rounds,
+            "bin.num_pairs": rounds, "track.step": n, "median.nonzero": 1,
+            "track.render_overflow": 1, "track.render_pairs": 1, **_bins(rounds + 1)}
     assert not math.isnan(float(res.median_depth))   # else median.nan_h2d too
     assert runs.track_syncs == want
     syncs = sp[top].syncs_at_end - sp[top].syncs_at_start
     inside = [s for s in sp if s.name == "sync" and sp[top].t0_ns <= s.t0_ns <= sp[top].t1_ns]
     assert syncs == sum(want.values()) == sum(s.work for s in inside)
+
+
+def test_track_frame_runs_eagerly_on_the_cpu(runs):
+    """CPU tensors take the eager loop: no CUDA graph is captured or replayed."""
+    assert runs.track_iters == {"graph_captures": 0, "graph_replays": 0,
+                                "eager_iters": runs.on[0].n_iters}
 
 
 def test_map_chunk_syncs_by_site(runs):
@@ -264,8 +270,8 @@ def test_map_chunk_syncs_by_site(runs):
     # window views re-binned every rebin_every iterations, replay views every one
     n_bins = math.ceil(MAP_ITERS / MAP_CFG.rebin_every) + MAP_ITERS
     want = {"map.pose_mask": 3, "map.lr_h2d": 1, "map.window_h2d": 2, "proj.h2d": 1,
-            "map.slots_h2d": MAP_ITERS, "map.ids_h2d": MAP_ITERS,
-            "se3.bottom_h2d": 2 * MAP_ITERS, "map.loss": 1, "map.seen": 2, **_bins(n_bins)}
+            "map.slots_h2d": MAP_ITERS, "map.ids_h2d": MAP_ITERS, "map.loss": 1,
+            "map.seen": 2, **_bins(n_bins)}
     assert runs.map_syncs == want
     assert sp[top].syncs_at_end - sp[top].syncs_at_start == sum(want.values())
 
@@ -382,7 +388,7 @@ def test_cli_writes_a_chrome_trace(tmp_path):
     assert len(track) == 3 and all(e["ph"] == "X" and e["dur"] > 0 for e in track)
     assert all(e["args"]["work"] == 4 for e in track)
     counters = {e["name"]: e["args"] for e in events if e["ph"] == "C"}
-    assert counters["sync"]["track.loss"] >= 12
+    assert counters["sync"]["track.step"] >= 12
     assert not trace.recording()
 
 
