@@ -17,6 +17,22 @@ the window (hooks.Recorder) and runs the frozen plain path
     <call>_bwd     the first compositor backward's field gradients
                    against the reference's: largest gap of each field over
                    that field's largest magnitude, the worst field
+    dyn_warp       (4D) the deformation MLP's outputs (d_xyz, d_rotation,
+                   d_scaling) at every node and time the iteration
+                   evaluates: largest gap over the largest magnitude, the
+                   worst head
+    dyn_field_bwd  (4D) the iteration's gradient of each tensor of the
+                   field (the nodes' radii and weights, the MLP's weights
+                   and biases, each head), where the flow loss, the ARAP
+                   and elastic terms and the warp's backward all show: as
+                   <call>_bwd reads, the worst tensor; a tensor whose
+                   reference gradient is nought to rounding (norm under a
+                   thousandth of the median tensor's: the nodes, which
+                   every use detaches) is left out
+    dyn_field_step (4D) the field after its first Adam step: the largest
+                   gap in units of the learning rate, over the elements
+                   whose reference gradient is at least a thousandth of
+                   its tensor's largest
   at the call's end:
     track_pose     the tracked pose against the reference's tracking: the
                    larger of the translation gap (mm) and the rotation gap
@@ -49,20 +65,35 @@ the window (hooks.Recorder) and runs the frozen plain path
                    against the frozen generator and plain renderer
 
 `<call>` is `track` for tracking, `map` for `map_chunk` and `dyn` for
-`map_chunk_dynamic`. A cell compares the numbers its limits file names.
+`map_chunk_dynamic`. A cell compares the numbers its limits file names;
+the others are worked out all the same (the result's `numbers`).
+
+The deformation field is held at the 4D call's first iteration because
+its end state cannot be: over a call of 50 iterations the field's Adam
+(eps 1e-15) grows the card's rounding and the order of its atomic sums
+into gaps that no limit tells from faults (on the card `dyn_field_change`
+read up to 0.54 over 12 sound seeds, and 0.36 for the float32 reference
+run again). So `dyn_loss`, `dyn_pose`, `dyn_render` and
+`dyn_field_change` are not compared; `dyn_change`, the map's, is. The
+program's side of the field numbers is read around its `mlp_forward`
+inside the timed call itself (hooks.py, FieldTap), the reference's
+around its own in a one-iteration run from the same copied inputs.
 The readings that set each limit come from control.py: the control, the
 reference in the program's place computed one precision lower (TF32
 matmuls, the compositor's field table in bfloat16); two faults planted in
 the reference in the program's place, every step returning its state
 unchanged (`unchanged`) and half of the window's views left out of the
-mapping call (`half`); and the float32 reference run again (`again`),
+mapping call (`half`); three faults of the deformation field, read at the
+4D call's first iteration (`FIELD_FAULTS`: the flow loss's contribution
+to the gradients dropped, the field's step skipped, the warp head's
+output scaled by 1.01); and the float32 reference run again (`again`),
 the spread of the reference against itself.
 """
 
 from __future__ import annotations
 
 import math
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -112,17 +143,44 @@ def precision(tf32: bool):
 
 
 @contextmanager
-def _patched(**fns):
-    """The reference compositor's `composite_forward` / `_backward`
-    replaced for a while."""
-    old = {k: getattr(RCOMP, k) for k in fns}
+def _patched(module=RCOMP, **fns):
+    """Functions of a reference module (the compositor's
+    `composite_forward` / `_backward` by default) replaced for a while."""
+    old = {k: getattr(module, k) for k in fns}
     for k, f in fns.items():
-        setattr(RCOMP, k, f)
+        setattr(module, k, f)
     try:
         yield
     finally:
         for k, f in old.items():
-            setattr(RCOMP, k, f)
+            setattr(module, k, f)
+
+
+@contextmanager
+def _field_fault(name: str | None):
+    """A fault of the deformation field planted in the reference:
+    `noflow` the flow loss's contribution to the gradients dropped,
+    `nostep` the field's Adam step skipped (its moments still move),
+    `head` the warp head's output scaled by 1.01; otherwise nothing."""
+    if name == "noflow":
+        f = RMD.masked_flow_l1
+        with _patched(RMD, masked_flow_l1=lambda *a, **k: f(*a, **k).detach()):
+            yield
+    elif name == "nostep":
+        f = RMD._adam_flat
+        with _patched(RMD, _adam_flat=lambda p, *a, **k: (p, *f(p, *a, **k)[1:])):
+            yield
+    elif name == "head":
+        f = RD.mlp_forward
+
+        def scaled(*a):
+            d_xyz, d_rot, d_scale = f(*a)
+            return d_xyz * 1.01, d_rot, d_scale
+
+        with _patched(RD, mlp_forward=scaled):
+            yield
+    else:
+        yield
 
 
 @contextmanager
@@ -131,9 +189,9 @@ def variant(name: str | None):
     control, "control": TF32 matmuls and each compositor call's field
     table rounded to bfloat16, the nearest precision below float32 of each
     kind of its arithmetic (matmuls; the compositor's elementwise work);
-    or a fault, computed in float32."""
+    or a fault, computed in float32 (the field's faults: `_field_fault`)."""
     if name != CONTROL:
-        with precision(False):
+        with precision(False), _field_fault(name):
             yield
         return
     f, b = RCOMP.composite_forward, RCOMP.composite_backward
@@ -163,6 +221,123 @@ def first_calls():
 
     with _patched(composite_forward=fwd, composite_backward=bwd):
         yield box
+
+
+HEADS = ("head_warp", "head_scaling", "head_rotation")
+# the columns of (d_xyz, d_rotation, d_scaling), as mlp_forward returns them
+HEAD_COLS = (slice(0, 3), slice(3, 7), slice(7, 10))
+FIELD_FAULTS = ("noflow", "nostep", "head")
+
+
+def mlp_tensors(mlp) -> dict:
+    """The MLP's tensors by name, in the order a field flattens them."""
+    out = {f"weights.{i}": w for i, w in enumerate(mlp.weights)}
+    out.update({f"biases.{i}": b for i, b in enumerate(mlp.biases)})
+    for h in HEADS:
+        out[f"{h}.W"], out[f"{h}.b"] = getattr(mlp, h)
+    return out
+
+
+def field_tensors(cn) -> dict:
+    """A deformation field's floating-point tensors by name: the control
+    nodes, their radii and weights, then the MLP's."""
+    return {"nodes": cn.nodes, "radius_raw": cn.radius_raw, "weight_raw": cn.weight_raw,
+            **mlp_tensors(cn.mlp)}
+
+
+class FieldTap:
+    """What a mapping call's first iteration does with the deformation
+    field, read around `mlp_forward(mlp, x, t)` (call it after each
+    evaluation with its output):
+
+      warp  every evaluation's inputs and outputs, [(x, t) rows (R, 4),
+            (d_xyz, d_rotation, d_scaling) rows (R, 10)], until the
+            field's gradient is taken;
+      grad  the field's gradient there, by tensor: a hook on the flat
+            vector the MLP's tensors are views of, where they are views of
+            one vector laid out as `field_tensors` orders the call's input
+            field `cn` (the MLP's tensors and the nodes', radii and
+            weights'), else a hook on each of the MLP's tensors;
+      step  the field at the first evaluation after that gradient, the
+            field after its first step (`result` takes the call's
+            returned field where no evaluation followed)."""
+
+    def __init__(self, cn):
+        like = field_tensors(cn)
+        self.shapes = {k: t.shape for k, t in like.items()}
+        sizes = np.cumsum([0] + [t.numel() for t in like.values()])
+        self.offsets = dict(zip(like, sizes[:-1].tolist()))
+        self.total = int(sizes[-1])
+        self.warp: list = []
+        self.grad: dict | None = None
+        self.step: dict | None = None
+        self._hooked = False
+
+    def _base(self, mlp):
+        """The flat vector the MLP's tensors are views of at their places
+        in the field's layout, or None."""
+        ts = mlp_tensors(mlp)
+        base = ts["weights.0"]._base
+        if base is None or base.dim() != 1 or base.numel() != self.total:
+            return None
+        for k, t in ts.items():
+            if (t._base is not base or t.shape != self.shapes[k]
+                    or t.storage_offset() - base.storage_offset() != self.offsets[k]):
+                return None
+        return base
+
+    def _split(self, flat) -> dict:
+        return {k: flat[o:o + math.prod(self.shapes[k])].reshape(self.shapes[k]).clone()
+                for k, o in self.offsets.items()}
+
+    def _set_grad(self, name: str | None, g):
+        self.grad = self.grad or {}
+        self.grad.update(self._split(g) if name is None else {name: g.detach().clone()})
+
+    def __call__(self, mlp, x, t, out) -> None:
+        if self.grad is not None:
+            if self.step is None:
+                base = self._base(mlp)
+                self.step = (self._split(base.detach()) if base is not None else
+                             {k: v.detach().clone() for k, v in mlp_tensors(mlp).items()})
+            return
+        rows = torch.cat([x.detach().reshape(-1, x.shape[-1]),
+                          t.detach().expand(x.shape[:-1] + (1,)).reshape(-1, 1)], dim=1)
+        self.warp.append((rows, torch.cat([o.detach().reshape(rows.shape[0], -1) for o in out],
+                                          dim=1)))
+        ts = mlp_tensors(mlp)
+        if self._hooked or not torch.is_grad_enabled() or not any(
+                v.requires_grad for v in ts.values()):
+            return
+        self._hooked = True
+        base = self._base(mlp)
+        if base is not None:
+            base.register_hook(lambda g: self._set_grad(None, g))
+        else:
+            for k, v in ts.items():
+                if v.requires_grad:
+                    v.register_hook(lambda g, k=k: self._set_grad(k, g))
+
+    def result(self, final) -> dict:
+        """warp, grad and step (from `final`, the call's returned field,
+        where no evaluation followed the gradient)."""
+        step = self.step if self.step is not None else {
+            k: v.detach().clone() for k, v in field_tensors(final).items()}
+        return {"warp": self.warp or None, "grad": self.grad, "step": step}
+
+
+@contextmanager
+def tapped(module, cn):
+    """A FieldTap on `module.mlp_forward` for the block."""
+    tap, f = FieldTap(cn), module.mlp_forward
+
+    def wrapper(mlp, x, t):
+        out = f(mlp, x, t)
+        tap(mlp, x, t, out)
+        return out
+
+    with _patched(module, mlp_forward=wrapper):
+        yield tap
 
 
 def rel_gap(a, b) -> float:
@@ -230,15 +405,96 @@ def _call(kind: str, a: dict, iters: int | None = None, name: str | None = None)
 
 def first_iteration(kind: str, snap, name: str | None = None) -> dict:
     """The reference's first iteration of the call from the snapshot: its
-    first compositor forward and backward outputs, and its loss there."""
-    with variant(name), first_calls() as box:
-        res = _call(kind, rebuild(snap["args"]), 1, name)
-    return {"fwd": box.get("fwd"), "bwd": box.get("bwd"), "loss": float(res.final_loss)}
+    first compositor forward and backward outputs, and its loss there; in
+    a 4D call also the field's (FieldTap: warp, grad, step)."""
+    a = rebuild(snap["args"])
+    cn = a.get("cn")
+    with variant(name), first_calls() as box, (
+            tapped(RD, cn) if kind == "dyn" else nullcontext()) as tap:
+        res = _call(kind, a, 1, name)
+    out = {"fwd": box.get("fwd"), "bwd": box.get("bwd"), "loss": float(res.final_loss)}
+    if kind == "dyn":
+        out.update(tap.result(res.deform))
+    return out
+
+
+def warp_gap(a, b) -> float:
+    """`dyn_warp`: the MLP's outputs at every (node, time) the first
+    iteration evaluates (rows met twice counted once), against the
+    reference's at the same inputs: per head the largest gap over the
+    largest magnitude, the worst head; inf where the two evaluated at
+    other inputs."""
+    if not a or not b:
+        return math.inf
+    (xa, oa), (xb, ob) = _unique_rows(a), _unique_rows(b)
+    if xa.shape != xb.shape or not torch.allclose(xa, xb, rtol=1e-6, atol=1e-6):
+        return math.inf
+    return max(rel_gap(oa[:, c], ob[:, c]) for c in HEAD_COLS)
+
+
+def _unique_rows(warp):
+    """The distinct input rows of a FieldTap's warp, sorted, each with the
+    output of its first evaluation."""
+    x = torch.cat([r for r, _ in warp])
+    o = torch.cat([v for _, v in warp])
+    _, inv = torch.unique(torch.round(x.double() * 2.0**20), dim=0, return_inverse=True)
+    first = torch.full((int(inv.max()) + 1,), x.shape[0], dtype=torch.long, device=x.device)
+    first.scatter_reduce_(0, inv, torch.arange(x.shape[0], device=x.device), "amin")
+    return x[first], o[first]
+
+
+def _kept_tensors(ref: dict) -> list[str]:
+    """The field tensors whose reference gradient is above round-off: a
+    norm of at least a thousandth of the median tensor's (the nodes, which
+    every use detaches, read 0 and are left out)."""
+    norms = {k: float(torch.linalg.norm(v)) for k, v in ref.items()}
+    med = float(np.median(list(norms.values())))
+    return [k for k, n in norms.items() if n > 0 and n >= 1e-3 * med]
+
+
+def field_grad_gap(prog, ref) -> float:
+    """`dyn_field_bwd`: the first iteration's gradient of each field tensor
+    against the reference's, as `field_gap` reads, the worst tensor; the
+    tensors that `_kept_tensors` leaves out, and the nodes' radii and
+    weights where the program's side read only the MLP's, are not
+    compared."""
+    if not prog or not ref:
+        return math.inf
+    keep = _kept_tensors(ref)
+    if not any(k in prog for k in keep):
+        return math.inf
+    return max(rel_gap(prog[k], ref[k]) for k in keep if k in prog)
+
+
+def field_step_gap(prog, ref, ref_grad, lr: float) -> float:
+    """`dyn_field_step`: the field after its first Adam step against the
+    reference's, the largest gap in units of the learning rate, over the
+    elements whose reference gradient is above round-off (at least a
+    thousandth of its tensor's largest, in a tensor `_kept_tensors`
+    keeps)."""
+    if not prog or not ref or not ref_grad:
+        return math.inf
+    worst = 0.0
+    for k in _kept_tensors(ref_grad):
+        if k not in prog:
+            continue
+        if prog[k].shape != ref[k].shape:
+            return math.inf
+        g = ref_grad[k].abs()
+        sel = g >= 1e-3 * g.max()
+        worst = max(worst, float((prog[k] - ref[k]).abs()[sel].max()) / lr)
+    return worst
 
 
 def judge_first(kind: str, out: dict, ref: dict) -> dict:
-    return {f"{kind}_fwd": rel_gap(out.get("fwd"), ref["fwd"]),
+    nums = {f"{kind}_fwd": rel_gap(out.get("fwd"), ref["fwd"]),
             f"{kind}_bwd": field_gap(out.get("bwd"), ref["bwd"])}
+    if kind == "dyn":
+        nums["dyn_warp"] = warp_gap(out.get("warp"), ref["warp"])
+        nums["dyn_field_bwd"] = field_grad_gap(out.get("grad"), ref["grad"])
+        nums["dyn_field_step"] = field_step_gap(out.get("step"), ref["step"], ref["grad"],
+                                                RMD.DEFORM_LR)
+    return nums
 
 
 # -- tracking -----------------------------------------------------------

@@ -11,8 +11,11 @@ While the window is open the recorder keeps:
     the correctness check judges (`kept`, see `Kept`): a copy of each
     one's inputs and of the outputs the check reads, with the outputs of
     its first compositor forward and backward (its first iteration's
-    render and gradient). Every call's inputs are copied before it runs;
-    a copy that is not kept is dropped when the call returns;
+    render and gradient), and of a 4D call what its first iteration did
+    with the deformation field, read around `mlp_forward`
+    (checks.FieldTap: the MLP's outputs, the field's gradient and the
+    field after its first step). Every call's inputs are copied before it
+    runs; a copy that is not kept is dropped when the call returns;
   * with `traced`, spans (name, host start and end in time.time_ns(),
     iterations), each made between two device synchronisations; the
     compositor calls' view counts; every `SAMPLE_EVERY`-th compositor
@@ -30,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from benchmark.checks import FieldTap
 from benchmark.roofline import mlp_ops
 
 SAMPLE_EVERY = 8       # compositor calls between two kept for the work counts
@@ -73,23 +77,23 @@ def compact_store(store, slots: np.ndarray):
 
 class Kept:
     """The calls of one kind that the check judges, chosen as they come,
-    from the seed: the call of most work (ties drawn) and `draws` drawn
-    uniformly from all the calls (a reservoir). At most 1 + `draws` copies
-    are alive; `picks()` gives the call of most work first, then a drawn
-    one that is not it."""
+    from the seed: the call of most work (ties drawn; work is a number, or
+    a tuple compared in order) and `draws` drawn uniformly from all the
+    calls (a reservoir). At most 1 + `draws` copies are alive; `picks()`
+    gives the call of most work first, then a drawn one that is not it."""
 
     def __init__(self, rng: np.random.Generator, draws: int):
         self.rng = rng
         self.draws = draws
         self.seen = 0
         self.longest = None
-        self.work = -1
+        self.work = None
         self.ties = 0
         self.drawn: list = []
 
-    def offer(self, snap, work: int) -> None:
+    def offer(self, snap, work) -> None:
         self.seen += 1
-        if work > self.work:
+        if self.longest is None or work > self.work:
             self.longest, self.work, self.ties = snap, work, 1
         elif work == self.work:
             self.ties += 1
@@ -115,11 +119,13 @@ class Recorder:
         self.spans: list[Span] = []
         rng = np.random.default_rng((seed, 1))
         # tracking: the longest frame and one drawn; mapping: the longest call
+        # (4D: of those, the one with the most live dynamic Gaussians)
         self.kept = {"track": Kept(rng, 2), "map": Kept(rng, 0), "dyn": Kept(rng, 0)}
         self.calls = {"fwd": [], "bwd": []}        # per call: (views, profiled)
         self.samples = {"fwd": [], "bwd": []}      # (call index, kept inputs)
         self.mlp_ops = {False: 0.0, True: 0.0}     # by profiled
         self.first: dict | None = None             # the recorded call's first fwd/bwd outputs
+        self.tap: FieldTap | None = None           # the recorded 4D call's field
         self._undo = []
 
     # -- spans --------------------------------------------------------
@@ -183,6 +189,7 @@ class Recorder:
                 a.apply_defaults()
                 inp = self._mapping_inputs(a.arguments)
                 self.first = {}
+                self.tap = FieldTap(a.arguments["cn"]) if kind == "dyn" else None
                 with self.span(span, lambda r: a.arguments["num_iters"]) as box:
                     res = fn(*args, **kw)
                     if box is not None:
@@ -190,8 +197,15 @@ class Recorder:
                 snap = self._mapping_outputs(inp, a.arguments, res)
                 if kind == "dyn":
                     snap["out"]["deform"] = plain(res.deform)
-                snap["first"], self.first = self.first, None
-                self.kept[kind].offer(snap, a.arguments["num_iters"])
+                    self.first.update(self.tap.result(res.deform))
+                snap["first"], self.first, self.tap = self.first, None, None
+                work = a.arguments["num_iters"]
+                if kind == "dyn":
+                    # then the live dynamic Gaussians the field warps: a
+                    # call with none gives the flow loss no path to the field
+                    g = a.arguments["gmap"]
+                    work = (work, int((g.dygs & g.alive).sum()))
+                self.kept[kind].offer(snap, work)
                 return res
 
             return wrapper
@@ -224,7 +238,10 @@ class Recorder:
                                           mlp.head_rotation[0]]
                 grad = torch.is_grad_enabled() and any(w.requires_grad for w in ws)
                 self.mlp_ops[self.profiled] += mlp_ops(ws, x.numel() // x.shape[-1], grad)
-            return mlp_forward(mlp, x, t)
+            out = mlp_forward(mlp, x, t)
+            if self.tap is not None:
+                self.tap(mlp, x, t, out)
+            return out
 
         self._patch(runner, "track_frame", track_wrapper)
         self._patch(runner, "map_chunk", mapping_wrapper(runner.map_chunk, "map_chunk", "map"))

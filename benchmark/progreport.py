@@ -10,9 +10,9 @@ seconds by innermost program span (`idle_by_span`, and by the span's
 path from its root, `idle_by_path`), the share of the idle time inside a
 span below a `frame` span (`idle_below_frame`), the syncs and their
 seconds by site in the cycle (`syncs_by_site`), the spans' count and
-self seconds by name (`self_s`), and of `track_frame` and `map_chunk` the
-milliseconds, host milliseconds outside the syncs and syncs per
-iteration (`per_iter`). A program without the tracer leaves
+self seconds by name (`self_s`), and of `track_frame`, `map_chunk` and
+`map_chunk_dynamic` the milliseconds, host milliseconds outside the syncs
+and syncs per iteration (`per_iter`). A program without the tracer leaves
 these empty."""
 
 import time
@@ -41,7 +41,7 @@ def report(reads, spans) -> dict:
         self_s[spans[i].name][0] += 1
         self_s[spans[i].name][1] += own[i] / 1e9
     per_iter = {}
-    for name in ("track_frame", "map_chunk"):
+    for name in ("track_frame", "map_chunk", "map_chunk_dynamic"):
         sel = [i for i in idx if spans[i].name == name]
         work = sum(spans[i].work for i in sel)
         if work:

@@ -10,8 +10,11 @@ cell passes every compared number. The sequence's ATE is left out of
 both: its limit is the configuration's at full size, which a run cut to
 160x120 and 12 tracking iterations does not keep.
 
-The 4D cell is held out of BENCHMARK.json (benchmark/held/) until its
-field's end state has a limit; its faults are caught all the same, and a
+The 4D cell's deformation field is held at its mapping call's first
+iteration (`dyn_warp`, `dyn_field_bwd`, `dyn_field_step`): three faults
+planted in the field (the flow loss's contribution to its gradient
+dropped, its Adam step skipped, the warp head's output scaled by 1.01)
+each fail one of those. Its end state is worked out but not compared; a
 field left unchanged under a map that moves reads 1 by
 `dyn_field_change`, which its clean run reads as 0."""
 
@@ -29,6 +32,9 @@ from benchmark.tests.small import shrink
 SEED = 2**31 + 12345
 
 
+FIELD_NUMBERS = ("dyn_warp", "dyn_field_bwd", "dyn_field_step")
+
+
 def run(cell, numbers=None):
     """The run's compared numbers over their limits, the ATE left out;
     every number it worked out goes into `numbers`."""
@@ -37,6 +43,7 @@ def run(cell, numbers=None):
     assert res["attempted"] > 0
     if numbers is not None:
         numbers.update(res["numbers"])
+        numbers["compared"] = set(res["checks"])
     return [k for k, c in res["checks"].items() if k != "ate" and not c["value"] <= c["limit"]]
 
 
@@ -106,6 +113,30 @@ def unchanged_field(res, given):
     return res._replace(deform=given["cn"], deform_adam=given["deform_adam"])
 
 
+def plant_field_fault(monkeypatch, fault):
+    """A fault of the deformation field, planted in the program for the
+    whole run."""
+    from fourdgs_torch.models import deform
+    from fourdgs_torch.slam import mapping_dynamic
+
+    if fault == "flow_grad_dropped":
+        f = mapping_dynamic.masked_flow_l1
+        monkeypatch.setattr(mapping_dynamic, "masked_flow_l1",
+                            lambda *a, **k: f(*a, **k).detach())
+    elif fault == "field_step_skipped":
+        f = mapping_dynamic._adam_flat
+        monkeypatch.setattr(mapping_dynamic, "_adam_flat",
+                            lambda p, *a, **k: (p, *f(p, *a, **k)[1:]))
+    else:
+        f = deform.mlp_forward
+
+        def scaled(*a):
+            d_xyz, d_rot, d_scale = f(*a)
+            return d_xyz * 1.01, d_rot, d_scale
+
+        monkeypatch.setattr(deform, "mlp_forward", scaled)
+
+
 CELLS = ["tum-fr3-static.walk", "bonn-balloon-4d.blob"]
 
 
@@ -114,6 +145,8 @@ def test_clean_run_passes(cell):
     numbers = {}
     assert run(cell, numbers) == []
     assert numbers.get("dyn_field_change", 0.0) == 0.0
+    if cell.startswith("bonn"):
+        assert set(FIELD_NUMBERS) <= numbers["compared"]
 
 
 def test_field_left_unchanged_reads_one(monkeypatch):
@@ -138,3 +171,9 @@ def test_fault_is_caught(cell, fault, monkeypatch):
     else:
         patch_mapping(monkeypatch, cell, change_args=half_views)
     assert run(cell)
+
+
+@pytest.mark.parametrize("fault", ["flow_grad_dropped", "field_step_skipped", "head_scaled"])
+def test_field_fault_fails_a_field_number(fault, monkeypatch):
+    plant_field_fault(monkeypatch, fault)
+    assert set(run("bonn-balloon-4d.blob")) & set(FIELD_NUMBERS)

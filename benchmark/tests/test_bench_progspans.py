@@ -1,4 +1,4 @@
-"""The readers of the program's own spans (progspans.py and the four
+"""The readers of the program's own spans (progspans.py and the six
 metrics that read it): numbers from a whole run of the static cell cut to
 the CPU (small.py) with the program's tracer turned on by hand, None with
 no span recorded or without the tracer (an older program); and the exact
@@ -14,6 +14,7 @@ from benchmark.tests.small import shrink
 
 NEW = ("track_syncs_per_iter", "track_host_ms_per_iter", "map_syncs_per_iter",
        "map_host_ms_per_iter")
+DYN = ("map4d_syncs_per_iter", "map4d_host_ms_per_iter")   # the 4D cell's
 SEED = 2**31 + 777
 
 
@@ -47,17 +48,22 @@ def test_readers_read_numbers_from_a_cpu_run(tracer):
 
 
 def test_readers_read_none_without_spans_or_tracer(tracer, monkeypatch):
-    for name in NEW:
+    for name in NEW + DYN:
         assert harness.load_reader(name).read(_readings()) is None
     with tracer.enable(), tracer.span("track_frame", 4), tracer.span("map_chunk", 2):
         pass
     assert harness.load_reader("track_syncs_per_iter").read(_readings()) == 0
+    assert harness.load_reader("map4d_syncs_per_iter").read(_readings()) is None
+    with tracer.enable(), tracer.span("map_chunk_dynamic", 3):
+        pass
+    assert harness.load_reader("map4d_syncs_per_iter").read(_readings()) == 0
+    assert harness.load_reader("map4d_host_ms_per_iter").read(_readings()) >= 0
     # a program without the tracer, as at the parent of the commit that added it
     import fourdgs_torch.utils
 
     monkeypatch.setitem(sys.modules, "fourdgs_torch.utils.trace", None)
     monkeypatch.delattr(fourdgs_torch.utils, "trace")
-    for name in NEW:
+    for name in NEW + DYN:
         assert harness.load_reader(name).read(_readings()) is None
 
 
