@@ -60,9 +60,10 @@ the window (hooks.Recorder) and runs the frozen plain path
   over the sequence:
     ate            camera-centre RMSE of every tracked frame against the
                    ground truth (mm); the configuration states its limit
-    poses, frames  (4D cell, where the port renders the sequence) its
-                   poses against the frozen generator's, and frames 0-5
-                   against the frozen generator and plain renderer
+    poses, frames  (4D cell, where the port renders the sequence; read by
+                   judges/synthetic_sequence.py) its poses against the
+                   frozen generator's, and frames 0-5 against the frozen
+                   generator and plain renderer
 
 `<call>` is `track` for tracking, `map` for `map_chunk` and `dyn` for
 `map_chunk_dynamic`. A cell compares the numbers its limits file names;

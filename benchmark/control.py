@@ -5,7 +5,9 @@ place and judged as the program is: computed one precision lower (TF32
 matmuls, the compositor's field table in bfloat16; `control`), with its
 steps returning their state unchanged (`unchanged`), with half of the
 window's views left out (`half`), and again in float32 (`again`), and
-the program's own numbers (`program`). Runs on the card:
+the program's own numbers (`program`); each judge the configuration
+names (harness.py) adds its readings for `control`, `again` and its
+`FAULTS`. Runs on the card:
 
     python3 benchmark/control.py --workload <cell> --seed <n> --seconds <s>
 

@@ -13,7 +13,29 @@ entry, `fourdgs_torch.slam.runner.SLAM(config).run(warmup_frames=6)`:
            closed at a frame fetch by an exception the benchmark raises
            from its proxy of the runner's dataset;
   check    the reference follows a sample of the window's calls, drawn
-           from the seed (checks.py), once the program's state is freed.
+           from the seed (checks.py), once the program's state is freed;
+           so do the judges the configuration names (below).
+
+A configuration may name, beside its sizes:
+  weights  {dotted key of its config: writer}: `weights/<writer>.py`'s
+           `write(path, seed)` writes a seeded weights file once per cell,
+           seed and writer (traffic.write_weights), and the key is set to
+           its path; the seconds of writing it are left out of `setup_s`,
+           as the sequence's are, and the program's loading of it stays in;
+  judges   [name, ...]: `judges/<name>.py` checks outputs the checks above
+           do not read. `install(rec, ctx)`, where given, runs before the
+           runner is built and may patch a program function through `rec._patch`
+           (undone with the recorder's); `collect(slam, ctx)`, where
+           given, runs after the window closes, before the runner is
+           freed; `judge(variant, ctx)` gives its numbers, for the program
+           (`variant` None) and, under control.py, for "control", "again"
+           and each name of the file's `FAULTS`. `ctx` is the judge's own
+           for the run: `cell`, `config`, `mix`, `seed`, `device` and
+           `rng` (a generator drawn from the seed, for a `hooks.Kept`); a
+           judge keeps its state on it. Its numbers are held to
+           `limits/<cell>.json` with the others; one it did not give reads
+           MISSING, which no limit passes.
+A name with no file fails the run at load.
 
 With `--trace 0` the metrics are the cell's end-to-end metrics, `fps`
 (frames of the window over its seconds) and `setup_s`. With `--trace 1`
@@ -38,7 +60,9 @@ import math
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -62,10 +86,13 @@ class Cell(NamedTuple):
     spec: dict          # BENCHMARK.json
     config: dict        # configs/<config>.json
     limits: dict        # limits/<cell>.json
+    writers: dict       # config key -> (writer's name, weights/<writer>.py)
+    judges: dict        # name -> judges/<name>.py
 
 
 def load_cell(name: str) -> Cell:
-    """A cell of BENCHMARK.json."""
+    """A cell of BENCHMARK.json, with its configuration's weights writers
+    and judges loaded."""
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in spec["workloads"]}
     if name not in cells:
@@ -74,7 +101,37 @@ def load_cell(name: str) -> Cell:
     entry = next(c for c in spec["configs"] if c["name"] == w["config"])
     config = json.loads((ROOT / entry["file"]).read_text())
     limits = json.loads((BENCH / "limits" / f"{name}.json").read_text())
-    return Cell(name, w["config"], w["traffic"], int(w["chips"]), spec, config, limits)
+    return Cell(name, w["config"], w["traffic"], int(w["chips"]), spec, config, limits,
+                *load_pieces(config))
+
+
+def load_pieces(config: dict) -> tuple[dict, dict]:
+    """The configuration's weights writers and judges, each from its own
+    file; a name with no file, or a file without the functions its kind
+    needs, fails here."""
+    writers = {key: (w, load_piece("weights", w, ("FILE", "write")))
+               for key, w in config.get("weights", {}).items()}
+    judges = {j: load_piece("judges", j, ("judge",)) for j in config.get("judges", [])}
+    return writers, judges
+
+
+def load_piece(kind: str, name: str, needs: tuple[str, ...]):
+    path = BENCH / kind / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"the configuration names {kind} {name!r}, but there is no {kind}/"
+                         f"{name}.py")
+    mod = _load_module(f"benchmark_{kind}_{name}", path)
+    missing = [n for n in needs if not hasattr(mod, n)]
+    if missing:
+        raise SystemExit(f"{kind}/{name}.py lacks {missing}")
+    return mod
+
+
+def _load_module(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def metrics_of(cell: Cell, kind: str) -> list[dict]:
@@ -123,12 +180,7 @@ class Readings(NamedTuple):
 
 
 def load_reader(name: str):
-    path = BENCH / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmark_metric_{name.replace('.', '_')}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load_module(f"benchmark_metric_{name}", BENCH / "metrics" / f"{name}.py")
 
 
 def card_line(device) -> dict:
@@ -168,14 +220,22 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
         overrides(cfg, mix, slam_kw)
     t_prep = time.perf_counter()
     poses_gt = traffic.prepare(cell.name, mix, cfg, seed, dev)
-    # writing the sequence stands in for a recording already on disk: it
-    # is the benchmark's own work, done in the first run of a seed only
+    traffic.write_weights(cell.name, cell.writers, cfg, seed)
+    # writing the sequence and the weights stands in for a recording and a
+    # checkpoint already on disk: it is the benchmark's own work, done in
+    # the first run of a seed only
     prep_s = time.perf_counter() - t_prep
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
     rec = hooks.Recorder(trace, sync, seed).install()
+    judges = [(j, SimpleNamespace(cell=cell.name, config=cfg, mix=mix, seed=seed, device=dev,
+                                  rng=np.random.default_rng((seed, 2, zlib.crc32(n.encode())))))
+              for n, j in cell.judges.items()]
     try:
+        for j, ctx in judges:
+            if hasattr(j, "install"):
+                j.install(rec, ctx)
         slam = SLAM(ConfigDict.wrap(cfg), device=dev, draws=TorchDraws(seed, dev), **slam_kw)
         window = WholeCycles(seconds, slam.n_frames, WARMUP_FRAMES, int(slam.kf_interval),
                              sync=sync)
@@ -193,7 +253,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
         setup_s = window.t_open - t_start - prep_s
         peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
         poses_est = dict(slam.poses_est)
-        program_seq = _program_sequence(cfg, inner)
+        slam.dataset = inner
+        for j, ctx in judges:
+            if hasattr(j, "collect"):
+                j.collect(slam, ctx)
         del slam, inner
     finally:
         rec.uninstall()
@@ -218,8 +281,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
         result["metrics"] = {m["name"]: {"value": host[m["name"]], "unit": m["unit"]}
                              for m in metrics_of(cell, "end_to_end")}
 
-    nums, ctrl = _check(cell, rec, seed, poses_est, poses_gt, program_seq, cfg, mix, dev,
-                        control)
+    nums, ctrl = _check(cell, rec, judges, poses_est, poses_gt, control)
     # a comparison that could not be made (a side missing, shapes that
     # differ) reads MISSING, which no limit passes
     checked = {}
@@ -246,15 +308,6 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
     result["checks"] = checked
     result["numbers"] = nums   # every number worked out, compared or not
     return result
-
-
-def _program_sequence(cfg: dict, dataset):
-    """Where the program renders the sequence: its poses, and its frames
-    0-5 (read back from its dataset, which rendered them in set-up)."""
-    if cfg["Dataset"]["type"] != "synthetic":
-        return None
-    return ([np.asarray(T, np.float64) for T in dataset.poses],
-            [dataset[i][:2] for i in range(WARMUP_FRAMES)])
 
 
 def _profiler_hooks(rec: hooks.Recorder, window: WholeCycles, dev) -> dict:
@@ -330,11 +383,11 @@ def _readings(rec: hooks.Recorder, prof: dict, window: WholeCycles) -> Readings:
     return Readings(rec.spans, tr, roof, total_ops if unprof and ops_s > 0 else None, ops_s)
 
 
-def _check(cell: Cell, rec: hooks.Recorder, seed: int, poses_est, poses_gt, program_seq, cfg,
-           mix, dev, control: bool):
-    """The compared numbers, each the worst over the checked calls; with
-    `control`, also the readings of the control, of the faults and of the
-    reference run again (checks.py); the field's faults
+def _check(cell: Cell, rec: hooks.Recorder, judges: list, poses_est, poses_gt, control: bool):
+    """The compared numbers, each the worst over the checked calls, and
+    the judges' numbers; with `control`, also the readings of the control,
+    of the faults and of the reference run again (checks.py, and each
+    judge's for "control", "again" and its `FAULTS`); the field's faults
     (checks.FIELD_FAULTS) are read at the 4D mapping call's first
     iteration only."""
     nums: dict[str, float] = {}
@@ -379,30 +432,11 @@ def _check(cell: Cell, rec: hooks.Recorder, seed: int, poses_est, poses_gt, prog
             worst(ctrl[name], checks.judge_first(kind, c1, ref1))
     rec.kept.clear()
     nums["ate"] = checks.ate_mm(poses_est, poses_gt)
-    if program_seq is not None:
-        from benchmark.reference import generator as G
-
-        ds = cfg["Dataset"]
-        n = int(mix["frames"])
-        port_poses, frames = program_seq
-        expect = traffic.synthetic_poses(n)
-        nums["poses"] = float(max(np.max(np.abs(a - b)) for a, b in zip(port_poses, expect)))
-        room = G.make_room_scene(seed, int(mix["points_per_wall"]))
-        blob = G.make_dynamic_blob(seed + 1) if mix["blob"] else None
-
-        def render(i, name):
-            with checks.variant(name):
-                return G.render_frame(G.scene_at(room, blob, i / max(n - 1, 1)), expect[i],
-                                      ds["Calibration"], dev)
-
-        def gap(a, b):
-            return float(np.mean(np.abs(a[0] - b[0])) + np.mean(np.abs(a[1] - b[1])))
-
-        ref_frames = [render(i, None) for i in range(len(frames))]
-        nums["frames"] = max(gap(f, r) for f, r in zip(frames, ref_frames))
+    for j, ctx in judges:
+        nums.update(j.judge(None, ctx))
         if control:
-            ctrl[checks.CONTROL]["frames"] = max(
-                gap(render(i, checks.CONTROL), r) for i, r in enumerate(ref_frames))
+            for name in (checks.CONTROL, "again") + tuple(getattr(j, "FAULTS", ())):
+                ctrl.setdefault(name, {}).update(j.judge(name, ctx))
     if control:
         ctrl["program"] = dict(nums)
     return nums, ctrl

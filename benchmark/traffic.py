@@ -22,6 +22,11 @@ The route is the configuration's `Dataset.type`:
              size and seed, and the check holds its poses and first
              frames against the frozen generator.
 The room is drawn from the seed, the blob from the seed + 1.
+
+A configuration may also name seeded weights (`weights`: a dotted key of
+its config -> a writer, `weights/<writer>.py`); `write_weights` writes
+each file once per cell, seed and writer, as the TUM layout's sequence
+is written, and sets the key to the file's path.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import hashlib
 import json
 import shutil
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -84,3 +90,34 @@ def prepare(cell: str, mix: dict, config: dict, seed: int, device) -> list[np.nd
     ds["dataset_path"] = str(out)
     ds["Calibration"]["depth_scale"] = float(mix["depth_scale"])
     return poses
+
+
+def writer_seed(seed: int, writer: str) -> int:
+    """The seed a weights writer draws from: derived from the run's seed
+    and the writer's name, so the weights change with the seed and two
+    writers of one run draw apart."""
+    state = np.random.SeedSequence((seed, zlib.crc32(writer.encode()))).generate_state(
+        1, np.uint64)
+    return int(state[0] >> np.uint64(1))
+
+
+def write_weights(cell: str, writers: dict, config: dict, seed: int) -> None:
+    """For each `config` key -> (writer's name, module) of `writers`, calls
+    the module's `write(path, seed)` once per cell, seed and writer, into
+    `benchmark/cache/<cell>-<seed>-weights-<writer>/<module.FILE>` (done
+    when its `complete` marker is there), and sets the key to the path."""
+    for key, (name, mod) in writers.items():
+        out = CACHE / f"{cell}-{seed}-weights-{name}"
+        path = out / mod.FILE
+        done = out / "complete"
+        if not done.exists():
+            if out.exists():
+                shutil.rmtree(out)
+            out.mkdir(parents=True)
+            mod.write(path, writer_seed(seed, name))
+            done.write_text(json.dumps({"seed": seed, "writer": name}))
+        *groups, leaf = key.split(".")
+        node = config
+        for g in groups:
+            node = node[g]
+        node[leaf] = str(path)
